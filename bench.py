@@ -4,15 +4,14 @@ Reference baseline: ~1 simulated year/second on a laptop (gfortran -O3;
 reference README.md:3, BASELINE.md).  Default workload shape: 96x48 grid,
 730 steps/yr, 24 circulation substeps/step, monthly means of 5 variables.
 
-Prints ONE JSON line:
+Runs on an NVIDIA GPU only: any other device is refused.  Prints ONE JSON
+line:
   {"metric": "sim_years_per_sec", "value": N, "unit": "sim-yr/s",
-   "vs_baseline": N}
+   "vs_baseline": N, "configs": {...}, "labels": {...}, "device": {...}}
 
-Extra context (mode, per-mode numbers) goes to stderr.
-
-Mode selection (env GREB_BENCH_MODE): "auto" (default) tries the fused
-Pallas whole-year kernel and falls back to the unrolled XLA path; "pallas"
-or "xla" force one.
+Extra context (per-config numbers) goes to stderr.  Configs are selected
+with GREB_BENCH_GRID / GREB_BENCH_GRID2 (WxH or "off") and GREB_BENCH_ENS
+(members, 0 = off).
 """
 from __future__ import annotations
 
@@ -40,115 +39,47 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
     from greb_tpu.config import GrebConfig, Numerics
-    from greb_tpu.forcing import Corrections
     from greb_tpu.model.driver import GREB
+    from greb_tpu.runtime import (enable_compile_cache,
+                                  gpu_name_and_power_limit, require_gpu)
 
-    mode = os.environ.get("GREB_BENCH_MODE", "auto")
+    try:
+        dev = require_gpu()
+    except RuntimeError as e:
+        print(f"bench: {e}", file=sys.stderr)
+        sys.exit(2)
+    enable_compile_cache()
     bench_years = int(os.environ.get("GREB_BENCH_YEARS", "20"))
-    platform = jax.devices()[0].platform
 
     num = Numerics(time_flux=1, time_scnr=bench_years)
     co2 = jnp.float32(680.0)
 
     results = {}
 
-    # --- XLA path (unrolled substeps: faster compile AND run on TPU) -------
-    if mode in ("auto", "xla"):
-        m = GREB(GrebConfig(numerics=num, unroll_circulation=True),
-                 verbose=False)
-        state_fc, corr = m.flux_correction()
-        runner = m._year_scenario(with_outputs=True)
-        state = m.initial_state().replace(cap_surf=state_fc.cap_surf)
+    # --- XLA path (strict stencils, unrolled substeps) ---------------------
+    m = GREB(GrebConfig(numerics=num, unroll_circulation=True),
+             verbose=False)
+    state_fc, corr = m.flux_correction()
+    runner = m._year_scenario(with_outputs=True)
+    state = m.initial_state().replace(cap_surf=state_fc.cap_surf)
 
-        def run_xla(s):
-            s2, monthly, mf = runner(s, m.sfx, corr, co2, m.md)
-            return s2
+    def run_xla(s):
+        s2, monthly, mf = runner(s, m.sfx, corr, co2, m.md)
+        return s2
 
-        rate = _steady_rate(run_xla, state, bench_years)
-        results["xla"] = rate
-        print(f"# xla: {rate:.2f} sim-yr/s", file=sys.stderr)
-
-    # --- fused multi-year Pallas kernel (production fast path) -------------
-    # whole blocks of years in ONE pallas_call (ops/pallas/multiyear.py):
-    # no per-year dispatch, monthly means accumulated in-kernel
-    if mode in ("auto", "pallas-multiyear") and platform != "cpu":
-        try:
-            mp = GREB(GrebConfig(numerics=num, use_pallas=True,
-                                 fast_circulation=True), verbose=False)
-            sfc, corr_p = mp.flux_correction()
-            state = mp.initial_state().replace(cap_surf=sfc.cap_surf)
-            runner = mp._multiyear_runner(bench_years)
-            ppack, fpack, sw, cpack, corrpack = mp._multiyear_args(corr_p)
-            fa = mp._pallas_fast_args()
-            co2y = jnp.full((bench_years,), 680.0, jnp.float32)
-            s5 = jnp.stack([state.ts, state.ta, state.to, state.q,
-                            state.cap_surf])[:, None]
-
-            def run_my(s5):
-                s5, monthly, _ = runner(s5, ppack, fpack, sw, cpack,
-                                        corrpack, co2y, *fa)
-                return s5
-
-            s5 = run_my(s5)                       # warm
-            jax.block_until_ready(s5)
-            t0 = time.perf_counter()
-            reps = 3
-            for _ in range(reps):
-                s5 = run_my(s5)
-            jax.block_until_ready(s5)
-            rate = reps * bench_years / (time.perf_counter() - t0)
-            results["pallas-multiyear"] = rate
-            print(f"# pallas-multiyear: {rate:.2f} sim-yr/s", file=sys.stderr)
-        except Exception as e:  # pragma: no cover - fallback path
-            print(f"# pallas-multiyear failed ({type(e).__name__}: {e})",
-                  file=sys.stderr)
-
-    # --- fused Pallas whole-year kernel ------------------------------------
-    # "pallas-fast" = coefficient-folded circulation (ops/fastcirc2.py)
-    # inside the fused year kernel; "pallas" = strict stencils
-    pallas_modes = []
-    if mode in ("pallas-fast",) or (mode == "auto"
-                                    and os.environ.get("GREB_BENCH_ALL")):
-        pallas_modes.append(("pallas-fast", True))
-    if mode == "pallas" or (mode == "auto"
-                            and os.environ.get("GREB_BENCH_ALL")):
-        pallas_modes.append(("pallas", False))
-    for mname, fastf in pallas_modes:
-        if platform == "cpu":
-            continue
-        try:
-            mp = GREB(GrebConfig(numerics=num, use_pallas=True,
-                                 fast_circulation=fastf), verbose=False)
-            sfc, corr_p = mp.flux_correction()
-            fpack, sw, cpack = mp._pallas_packs()
-            corrpack = jnp.stack([corr_p.tf, corr_p.tof, corr_p.qf], axis=1)
-            r_p = mp._year_scenario_pallas()
-            fa = mp._pallas_fast_args()
-
-            def run_pl(s):
-                s2, monthly, mf = r_p(s, fpack, sw, cpack, corrpack, co2, *fa)
-                return s2
-
-            state = mp.initial_state().replace(cap_surf=sfc.cap_surf)
-            rate = _steady_rate(run_pl, state, bench_years)
-            results[mname] = rate
-            print(f"# {mname}: {rate:.2f} sim-yr/s", file=sys.stderr)
-        except Exception as e:  # pragma: no cover - fallback path
-            print(f"# {mname} path failed ({type(e).__name__}: {e}); "
-                  f"using xla", file=sys.stderr)
+    rate = _steady_rate(run_xla, state, bench_years)
+    results["xla"] = rate
+    print(f"# xla: {rate:.2f} sim-yr/s", file=sys.stderr)
 
     # --- refined grids (configs 4-5 of BASELINE.json) -----------------------
-    # measured BY DEFAULT on TPU so the driver-captured JSON artifact carries
-    # them (VERDICT r2 #6); override/disable via GREB_BENCH_GRID=WxH|off and
+    # measured by default; override/disable via GREB_BENCH_GRID=WxH|off and
     # GREB_BENCH_GRID2=WxH|off (the config-5 768x384 grid, VERDICT r4 #1)
     labels = {}
     grid_specs = []
-    grid_env = os.environ.get("GREB_BENCH_GRID",
-                              "384x192" if platform != "cpu" else "")
+    grid_env = os.environ.get("GREB_BENCH_GRID", "384x192")
     if grid_env and grid_env != "off":
         grid_specs.append((grid_env, 1800, max(2, bench_years // 5)))
-    grid2_env = os.environ.get("GREB_BENCH_GRID2",
-                               "768x384" if platform != "cpu" else "")
+    grid2_env = os.environ.get("GREB_BENCH_GRID2", "768x384")
     if grid2_env and grid2_env != "off":
         grid_specs.append((grid2_env, 450, 1))
     for genv, dtc, gny in grid_specs:
@@ -161,11 +92,13 @@ def main() -> None:
         # full-calendar refined-grid regrids cost minutes of host CPU on
         # small hosts — cache them (deterministic: synthetic seed +
         # bilinear weights); shared with tools/run_config5.py at 768x384
+        import tempfile
         import numpy as _np
+        tmp = tempfile.gettempdir()
         cache = (os.environ.get("GREB_C5_FORCING_CACHE",
-                                "/tmp/greb_f768_cache.npz")
+                                os.path.join(tmp, "greb_f768_cache.npz"))
                  if (gx, gy) == (768, 384)
-                 else f"/tmp/greb_forcing_{gx}x{gy}.npz")
+                 else os.path.join(tmp, f"greb_forcing_{gx}x{gy}.npz"))
         if os.path.exists(cache):
             arrs = dict(_np.load(cache))
         else:
@@ -175,45 +108,17 @@ def main() -> None:
             _np.savez(cache + ".tmp.npz", **arrs)
             os.replace(cache + ".tmp.npz", cache)
         gforc = forcing_from_arrays(arrs)
-        gm = GREB(GrebConfig(numerics=gnum, use_pallas=True,
-                             fast_circulation=True),
+        gm = GREB(GrebConfig(numerics=gnum, fast_circulation=True),
                   forcing=gforc, verbose=False)
         sfc, corr_g = gm.flux_correction()
-        rate = None
-        gpath = "xla"
-        # fused multi-year Pallas kernel — viable at refined grids since the
-        # round-4 VMEM correction (128 MiB/chip, PERF.md); 5.5x the XLA path
-        if gm._pallas_viable() and platform != "cpu":
-            try:
-                runner = gm._multiyear_runner(gny)
-                ppk, fpk, swk, cpk, crk = gm._multiyear_args(corr_g)
-                fag = gm._pallas_fast_args()
-                co2g = jnp.full((gny,), 680.0, jnp.float32)
-                s5 = jnp.stack([sfc.ts, sfc.ta, sfc.to, sfc.q,
-                                sfc.cap_surf])[:, None]
+        gpath = "xla-fast"
+        _, fcdata = gm._fastcirc_split()
+        jr = gm._year_scenario(with_outputs=True)
 
-                def run_gmy(s5):
-                    s5, _, _ = runner(s5, ppk, fpk, swk, cpk, crk, co2g, *fag)
-                    return s5
+        def run_g(s):
+            return jr(s, gm.sfx, corr_g, co2, gm.md, fcdata)[0]
 
-                s5 = run_gmy(s5)
-                jax.block_until_ready(s5)
-                t0 = time.perf_counter()
-                s5 = run_gmy(s5)
-                jax.block_until_ready(s5)
-                rate = gny / (time.perf_counter() - t0)
-                gpath = "pallas-multiyear"
-            except Exception as e:
-                print(f"# grid pallas failed ({type(e).__name__}: {e}); "
-                      f"using xla", file=sys.stderr)
-        if rate is None:
-            _, fcdata = gm._fastcirc_split()
-            jr = gm._year_scenario(with_outputs=True)
-
-            def run_g(s):
-                return jr(s, gm.sfx, corr_g, co2, gm.md, fcdata)[0]
-
-            rate = _steady_rate(run_g, sfc, gny)
+        rate = _steady_rate(run_g, sfc, gny)
         pts = gx * gy * gnum.nstep_yr * rate
         print(f"# grid[{gx}x{gy}]: {rate:.3g} sim-yr/s "
               f"({pts / 1e6:.0f} M point-steps/s, {rate * 86400:.0f} "
@@ -221,18 +126,17 @@ def main() -> None:
         results[f"grid[{genv}]"] = rate
         labels[f"grid[{genv}]"] = {"path": gpath, "dt_crcl": dtc,
                                    "sim_yr_per_day": round(rate * 86400, 1)}
-        # release this grid's device arrays (768x384 holds ~10 GB of HBM:
-        # forcing + correction tables) before the ensemble/tpu-test lanes
+        # release this grid's device arrays (768x384 holds ~10 GB:
+        # forcing + correction tables) before the ensemble lane
         import gc
         del gm, sfc, corr_g, arrs, gforc
         gc.collect()
 
     # --- ensemble aggregate (config 3 of BASELINE.json) ---------------------
-    # batched MXU runner: member axis inside the arrays, zonal applies as
-    # (M, X) @ (X, X) batched matmuls (fastcirc2.mxu_circulation)
-    # measured BY DEFAULT on TPU (driver artifact); GREB_BENCH_ENS=0 disables
-    n_ens = int(os.environ.get("GREB_BENCH_ENS",
-                               "256" if platform != "cpu" else "0"))
+    # batched matmul runner: member axis inside the arrays, zonal applies as
+    # (M, X) @ (X, X) batched matmuls (fastcirc2.mxu_circulation);
+    # GREB_BENCH_ENS=0 disables
+    n_ens = int(os.environ.get("GREB_BENCH_ENS", "256"))
     if n_ens > 0:
         import numpy as _np
         from greb_tpu.ops import fastcirc2 as fc2
@@ -246,7 +150,7 @@ def main() -> None:
         state_b = ens.ensemble_initial_state(
             pb, m.forcing, ens.ensemble_data(pb, m.forcing, m.sf))
         plan, (const,) = m._fastcirc_split()
-        # "stacked" = both zonal applies in ONE matmul (measured best on v5e)
+        # "stacked" = both zonal applies in ONE matmul; precision "highest"
         fcdata = (const, fc2.build_mxu(const, plan, mode="stacked"))
         flux_b, scnr_b = ens.make_batched_ensemble_runners(
             m.st, m.num, m.exp, m.month_mat, fast_plan=plan)
@@ -260,59 +164,12 @@ def main() -> None:
         rate = _steady_rate(run_ens, state_b, years) * n_ens
         results[f"ensemble[{n_ens}]"] = rate
         # self-describing artifact (VERDICT r4 #8): the aggregate number is
-        # mode- and precision-dependent (HIGHEST measured ~25% slower)
+        # mode- and precision-dependent
         labels[f"ensemble[{n_ens}]"] = {"mxu_mode": "stacked",
-                                        "precision": "high (bf16_3x)",
+                                        "precision": "highest (float32)",
                                         "spinup": "per-member"}
         print(f"# ensemble[{n_ens}]: {rate:.1f} aggregate sim-yr/s "
-              f"({rate / n_ens:.2f} per member, stacked MXU, HIGH)",
-              file=sys.stderr)
-
-    # --- sharded scaling on the virtual CPU mesh (GREB_BENCH_SHARD=N) -------
-    # no multi-chip hardware here; this records that the latitude-sharded
-    # fast path runs end-to-end and how it scales with shard count.  Runs BY
-    # DEFAULT (8-way) so the driver artifact always carries the shard line
-    # (VERDICT r4 #7); GREB_BENCH_SHARD=0 disables
-    n_shard = int(os.environ.get("GREB_BENCH_SHARD", "8"))
-    if n_shard > 0:
-        import re
-        import subprocess
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count={n_shard}")
-        grid = os.environ.get("GREB_BENCH_SHARD_GRID", "96x48")
-        r = subprocess.run([sys.executable, "tools/bench_shard.py",
-                            str(n_shard), grid], env=env,
-                           capture_output=True, text=True, timeout=1800)
-        out = (r.stdout + r.stderr).strip().splitlines()
-        for ln in out[-3:]:
-            print(f"# {ln}", file=sys.stderr)
-            # "shard[N] <rate> sim-yr/s grid=XxY" -> JSON configs line
-            # (VERDICT r3 task 10: artifact, not stderr-only)
-            mm = re.match(r"shard\[(\d+)\]\s+([0-9.]+)\s+sim-yr/s", ln)
-            if mm:
-                results[f"shard[{mm.group(1)}]@{grid}"] = float(mm.group(2))
-
-    # --- TPU-only test lane (VERDICT r4 #6) ----------------------------------
-    # the driver's recorded suite runs on the CPU mesh, so the TPU-only
-    # parity tests (fused kernel at 384x192, MXU ensemble lanes, golden year
-    # on-chip) were previously green only as README claims.  Run them here
-    # and put the outcome IN the artifact.  GREB_BENCH_TPUTESTS=0 disables.
-    tpu_tests = None
-    if (platform != "cpu"
-            and os.environ.get("GREB_BENCH_TPUTESTS", "1") != "0"):
-        import subprocess
-        tfiles = ["tests/test_pallas_refined.py", "tests/test_mxu.py",
-                  "tests/test_golden_year.py"]
-        env = dict(os.environ, GREB_TEST_TPU="1")
-        try:
-            r = subprocess.run(
-                [sys.executable, "-m", "pytest", "-x", "-q", *tfiles],
-                env=env, capture_output=True, text=True, timeout=1800)
-            tail = (r.stdout.strip().splitlines() or [""])[-1]
-            tpu_tests = "pass" if r.returncode == 0 else f"FAIL: {tail}"
-        except Exception as e:
-            tpu_tests = f"FAIL: {type(e).__name__}"
-        print(f"# tpu_tests: {tpu_tests} ({' '.join(tfiles)})",
+              f"({rate / n_ens:.2f} per member, stacked matmuls, highest)",
               file=sys.stderr)
 
     if not results:
@@ -324,7 +181,6 @@ def main() -> None:
     single = {k: v for k, v in results.items()
               if not (k.startswith("ensemble") or k.startswith("grid["))}
     best_mode, best = max(single.items(), key=lambda kv: kv[1])
-    dev = jax.devices()[0]
     print(f"# best={best_mode} on {dev.platform}:{dev.device_kind}; "
           f"workload: {bench_years}-yr 2xCO2 scenario, 96x48, 730 steps/yr",
           file=sys.stderr)
@@ -340,9 +196,10 @@ def main() -> None:
         "configs": {k: round(v, 3) for k, v in results.items()},
         # per-config mode/precision/path labels (VERDICT r4 #8)
         "labels": labels,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices()),
+                   "nvidia_smi": gpu_name_and_power_limit()},
     }
-    if tpu_tests is not None:
-        out["tpu_tests"] = tpu_tests
     print(json.dumps(out))
 
 

@@ -1,10 +1,10 @@
-"""greb_tpu — a TPU-native (JAX/XLA/Pallas/pjit) re-design of the GREB
-globally-resolved energy-balance climate model.
+"""greb_tpu — a JAX/XLA re-design of the GREB globally-resolved
+energy-balance climate model.
 
 Feature-parity target: sieste/greb-climate-model (Fortran 90 reference),
-re-architected for TPU: pure-functional physics ops, ``lax.scan`` time
-stepping, vmapped ensembles, ``shard_map`` domain decomposition with
-``ppermute`` halo exchange, and fused Pallas circulation kernels.
+re-architected for accelerators: pure-functional physics ops, ``lax.scan``
+time stepping, vmapped ensembles, and ``shard_map`` domain decomposition
+with ``ppermute`` halo exchange.
 """
 from .config import (CO2Params, Diagnostics, Experiment, GrebConfig, Numerics,
                      PhysicsParams, config_from_namelist)

@@ -1,14 +1,13 @@
 """CLI entry point: ``python -m greb_tpu [namelist] [options]``.
 
-The TPU-native equivalent of the reference's ``./greb [namelist]``
+The equivalent of the reference's ``./greb [namelist]``
 (PROGRAM greb_run, reference src/greb.f90:996-1098): the positional argument
 is a Fortran namelist path (default ``namelist``), input climatologies are
 read from ``--input-dir`` in the reference's direct-access binary format
 (or synthesized with ``--synthetic``), and output is the reference's
 5-variable monthly-mean record stream.
 
-TPU-native extras beyond the reference CLI:
-  --pallas            fused whole-year kernel (single-model TPU fast path)
+Extras beyond the reference CLI:
   --checkpoint-dir    periodic checkpoint/resume (the reference has none)
   --legacy            run the legacy experiment workflow for the namelist's
                       log_exp (control + scenario phases, TF_correct dump;
@@ -25,7 +24,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m greb_tpu",
-        description="TPU-native GREB climate model")
+        description="GREB climate model in JAX")
     p.add_argument("namelist", nargs="?", default="namelist",
                    help="namelist path (default: ./namelist, like ./greb)")
     p.add_argument("--input-dir", default=None,
@@ -35,8 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force synthetic forcing even if --input-dir is set")
     p.add_argument("--output", default=None,
                    help="override diagnostics_par output_file")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused whole-year Pallas kernel")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=10,
                    help="years between checkpoints")
@@ -47,14 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-circulation", action="store_true",
                    help="strict term-by-term stencils instead of the "
                         "coefficient-folded fast circulation (bit-level "
-                        "fidelity mode; ~5x slower on TPU)")
+                        "fidelity mode; slower)")
     p.add_argument("--plots", default=None, metavar="PREFIX",
                    help="after the run, write the reference README's figure "
                         "set (warming curve, Arctic albedo, dTsurf, inputs) "
                         "as PREFIX_*.png")
     p.add_argument("--ensemble", type=int, default=0, metavar="M",
                    help="run an M-member perturbed-physics ensemble batched "
-                        "on one chip (the reference runs one process per "
+                        "on one device (the reference runs one process per "
                         "member via ens_id, src/greb.f90:1064-1068); each "
                         "member's monthly records go to output_file_<i>")
     p.add_argument("--perturb", default="ct_sens=22.05:22.95",
@@ -65,16 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ensemble mode: one BASE-params flux-correction "
                         "spin-up shared by every member (the standard "
                         "perturbed-physics-ensemble setup) instead of "
-                        "per-member spin-ups; per-member 40 MB correction "
-                        "tables cap per-member spin-up at M<=256/chip, "
-                        "shared spin-up unlocks M>=512 (PERF.md)")
+                        "per-member spin-ups, which each keep 40 MB of "
+                        "correction tables")
     p.add_argument("--mxu-precision", choices=("high", "highest"),
-                   default="high",
-                   help="matmul precision of the ensemble MXU circulation: "
-                        "'high' (bf16_3x passes, ~2^-21 relative error, the "
-                        "throughput default) or 'highest' (exact f32, the "
-                        "single-run fidelity contract; ~25%% slower "
-                        "aggregate)")
+                   default="highest",
+                   help="matmul precision of the ensemble's matmul "
+                        "circulation: 'highest' (full float32, the "
+                        "single-run fidelity contract; default) or 'high' "
+                        "(TF32 tensor-core passes on an H100, ~10 mantissa "
+                        "bits; error in PERF.md)")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -83,6 +79,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .config import GrebConfig, config_from_namelist
+    from .runtime import enable_compile_cache
     from .model.driver import GREB
 
     if os.path.exists(args.namelist):
@@ -98,14 +95,13 @@ def main(argv=None) -> int:
             cfg, diagnostics=dataclasses.replace(cfg.diagnostics,
                                                  output_file=args.output))
     import dataclasses
-    if args.pallas:
-        cfg = dataclasses.replace(cfg, use_pallas=True)
     # the coefficient-folded circulation is the production default for the
     # CLI (validated allclose vs the strict path; tests/test_fastcirc.py);
     # legacy experiments fall back automatically where unsupported
     cfg = dataclasses.replace(cfg,
                               fast_circulation=not args.strict_circulation)
 
+    enable_compile_cache()
     input_dir = None if args.synthetic else args.input_dir
     model = GREB(cfg, params=params, input_dir=input_dir,
                  verbose=not args.quiet)
@@ -142,8 +138,8 @@ def main(argv=None) -> int:
 
 
 def run_ensemble(model, out_path: str, args) -> None:
-    """M-member perturbed-physics ensemble on one chip: spin-up + scenario
-    with the member axis batched through the MXU circulation
+    """M-member perturbed-physics ensemble on one device: spin-up +
+    scenario with the member axis batched through the matmul circulation
     (parallel/ensemble.py), per-member output streams with the reference's
     ens_id suffix convention (src/greb.f90:1064-1068)."""
     import jax
@@ -193,7 +189,7 @@ def run_ensemble(model, out_path: str, args) -> None:
         # one BASE-params spin-up, shared correction tables (member axis of
         # size 1 broadcasts through the batched runners) — the standard
         # perturbed-physics-ensemble configuration; removes the per-member
-        # 40 MB correction tables that cap per-member spin-up at M=256/chip
+        # 40 MB correction tables
         state0, corr0 = model.flux_correction()
         corr_b = jax.tree.map(lambda a: a[:, None], corr0)
         state_b = state_b.replace(cap_surf=jnp.broadcast_to(

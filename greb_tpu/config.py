@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native GREB framework.
+"""Configuration system for the GREB framework.
 
 Mirrors the reference Fortran namelist groups (numerics_par, physics_par,
 co2_par, diagnostics_par; cf. reference src/greb.f90:32-158 and
@@ -24,7 +24,8 @@ from typing import Optional, Sequence, Tuple
 
 import jax
 import numpy as np
-from flax import struct
+
+from ._pytree import pytree_dataclass
 
 F32 = np.float32
 
@@ -82,7 +83,7 @@ class Numerics:
 # Physics parameters: a pytree of float32 scalars (vmappable).
 # Reference defaults: src/greb.f90:68-101.
 # ---------------------------------------------------------------------------
-@struct.dataclass
+@pytree_dataclass
 class PhysicsParams:
     # natural constants
     pi: jax.Array        # 3.1416 in the reference (used in grid metrics)
@@ -286,16 +287,15 @@ class GrebConfig:
     diagnostics: Diagnostics = field(default_factory=Diagnostics)
     co2: CO2Params = field(default_factory=CO2Params)
     experiment: Experiment = field(default_factory=Experiment)
-    # runtime knobs (not in the reference; TPU-native controls)
-    # Statically unrolling the 24 circulation substeps helps TPU latency but
-    # inflates the XLA graph ~24x (CPU compiles of a full year then take
-    # minutes); default to lax.scan and let benchmarks opt in.
+    # runtime knobs (not in the reference)
+    # Statically unrolling the 24 circulation substeps inflates the XLA
+    # graph ~24x (CPU compiles of a full year then take minutes); default to
+    # a loop and let benchmarks opt in.
     unroll_circulation: bool = False
     # Runtime failure detection (the reference debug build's FPE-trap analog,
     # Makefile:10): check prognostic fields for NaN/Inf every N scenario
     # years (0 = off) and raise FloatingPointError naming the fields.
     check_finite_every: int = 0
-    use_pallas: bool = False          # fused Pallas circulation kernel
     # Coefficient-folded circulation (ops/fastcirc.py): same float32 formulas
     # algebraically regrouped into ~11 fused multiply-adds per substep, with
     # the polar clamp iterations kept exactly.  Matches the strict path to

@@ -2,7 +2,7 @@
 
 The reference simply allocates everything statically (13 forcing fields at
 96x48x730 ~= 175 MB, SURVEY §6); at 768x384 the same layout is ~11 GB and
-must be budgeted against one chip's HBM (v5e: 16 GB) or sharded along
+must be budgeted against one device's memory or sharded along
 latitude (parallel.multihost.make_global_forcing materializes only each
 host's rows).  This module computes those budgets exactly from the
 Numerics so tests and the CLI can assert a configuration fits before
@@ -39,10 +39,11 @@ class MemoryReport:
     # the grid-independent budgets so planning callers can see them
     infeasible_reason: str = ""
 
-    def fits(self, hbm_bytes: int = 16 * 2 ** 30,
-             headroom: float = 0.75) -> bool:
+    def fits(self, hbm_bytes: int, headroom: float = 0.75) -> bool:
         """Whether one shard's resident set fits in ``hbm_bytes`` with
-        ``headroom`` (XLA scratch, fusion temporaries, output staging)."""
+        ``headroom`` (XLA scratch, fusion temporaries, output staging).
+        On a live device, ``device.memory_stats()["bytes_limit"]`` is the
+        memory JAX may allocate."""
         return self.per_shard_total <= hbm_bytes * headroom
 
 

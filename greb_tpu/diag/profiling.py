@@ -7,7 +7,7 @@ timer variables (Makefile:10, src/greb.f90:126; SURVEY §5).  Here:
                       (sim-yr/s, grid-point-steps/s).
 - ``trace``         : context manager around ``jax.profiler`` producing a
                       TensorBoard-loadable device trace.
-- ``check_finite``  : runtime NaN/Inf detection over a pytree (the TPU
+- ``check_finite``  : runtime NaN/Inf detection over a pytree (the
                       equivalent of the reference debug build's
                       ``-ffpe-trap``), raising with the offending leaf names.
 - ``RunMetrics``    : accumulates per-year scalars (global-mean Ts, CO2,
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -81,6 +82,109 @@ def trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_trace_summary(log_dir: str, device: str = "/device:GPU:0"
+                         ) -> Dict:
+    """Reduce the newest ``jax.profiler`` trace under ``log_dir`` to counts
+    for one device (``summarize_device_lines``) and, under "host", the
+    host threads' launch and wait calls (``summarize_host_lines``)."""
+    import glob
+    import os
+    paths = sorted(glob.glob(os.path.join(log_dir, "plugins", "profile",
+                                          "*", "*.xplane.pb")))
+    if not paths:
+        raise FileNotFoundError(f"no trace under {log_dir}")
+    data = jax.profiler.ProfileData.from_file(paths[-1])
+
+    dev, host = {}, {}
+    for plane in data.planes:
+        for line in plane.lines:
+            events = [(e.name, e.start_ns, e.end_ns) for e in line.events]
+            if plane.name == device:
+                dev[line.name] = events
+            elif plane.name.startswith("/host"):
+                host[f"{plane.name}/{line.name}"] = events
+    out = summarize_device_lines(dev)
+    out["host"] = summarize_host_lines(host)
+    return out
+
+
+def copy_kind(event_name: str) -> Optional[str]:
+    """"h2d", "d2h", "d2d" or "p2p" for a copy the GPU trace records
+    (event names "MemcpyH2D", "MemcpyDtoH", ...), "memset" for a memset,
+    None for a kernel (even one named like "memcpy32_post")."""
+    m = re.match(r"Memcpy([HDP])(?:2|to)([HDP])", event_name)
+    if m:
+        return f"{m.group(1)}2{m.group(2)}".lower()
+    return "memset" if event_name.startswith("Memset") else None
+
+
+def summarize_device_lines(lines: Dict[str, List]) -> Dict:
+    """Counts from one device's trace lines ``{line name: [(event name,
+    start_ns, end_ns), ...]}``: events per line; on the stream lines (names
+    starting "Stream"), kernels, copies by ``copy_kind``, and every distinct
+    event name that reads like a copy or memset with its kind and count;
+    their busy time (union of intervals); and the window from the first
+    start to the last end."""
+    out = {"lines": {name: len(ev) for name, ev in lines.items()},
+           "kernels": 0, "copies": {}, "copy_names": {},
+           "busy_ns": 0, "window_ns": 0}
+    spans = []
+    for name, events in lines.items():
+        if not name.startswith("Stream"):
+            continue
+        for ev_name, start, end in events:
+            kind = copy_kind(ev_name)
+            if kind is None:
+                out["kernels"] += 1
+            else:
+                out["copies"][kind] = out["copies"].get(kind, 0) + 1
+            if kind is not None or re.search("memcpy|memset", ev_name,
+                                             re.IGNORECASE):
+                entry = out["copy_names"].setdefault(
+                    ev_name, {"kind": kind or "kernel", "count": 0})
+                entry["count"] += 1
+            spans.append((start, end))
+    if spans:
+        spans.sort()
+        busy, (s0, e0) = 0, spans[0]
+        for s, e in spans[1:]:
+            if s > e0:
+                busy += e0 - s0
+                s0, e0 = s, e
+            else:
+                e0 = max(e0, e)
+        out["busy_ns"] = busy + (e0 - s0)
+        out["window_ns"] = max(e for _, e in spans) - spans[0][0]
+    return out
+
+
+# host-side calls that show how the host drives the device: a launch per
+# loop iteration puts the host in the loop; a synchronisation or a
+# device-to-host copy per iteration makes it wait there
+HOST_CALLS = {
+    "graph_launch": r"^cuGraphLaunch",
+    "kernel_launch": r"^cuLaunchKernel",
+    "while_thunk": r"^while(\.\d+)?$",
+    "sync": r"Synchronize|BlockHostUntilDone",
+    "d2h": r"^cuMemcpyDtoH|^MemcpyD2H|^MemcpyDtoH",
+}
+
+
+def summarize_host_lines(lines: Dict[str, List]) -> Dict:
+    """Counts of the ``HOST_CALLS`` classes over host trace lines (same
+    form as for ``summarize_device_lines``), with each matching event name
+    and its count under "names"."""
+    out = {k: 0 for k in HOST_CALLS}
+    out["names"] = {}
+    for events in lines.values():
+        for ev_name, _, _ in events:
+            for k, pat in HOST_CALLS.items():
+                if re.search(pat, ev_name):
+                    out[k] += 1
+                    out["names"][ev_name] = out["names"].get(ev_name, 0) + 1
+    return out
 
 
 def check_finite(tree, name: str = "state") -> None:

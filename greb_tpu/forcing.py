@@ -18,14 +18,14 @@ from typing import Dict, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ._pytree import pytree_dataclass
 from .config import Experiment, Numerics, PhysicsParams
 
 F32 = np.float32
 
 
-@struct.dataclass
+@pytree_dataclass
 class ClimForcing:
     z_topo: jax.Array     # (y,x)
     glacier: jax.Array    # (y,x)
@@ -43,7 +43,7 @@ class ClimForcing:
         return self.tclim.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Derived:
     """Derived program constants (reference src/greb.f90:176-216, 1088-1094)."""
     wz_air: jax.Array     # exp(-z_topo/z_air)
@@ -55,7 +55,7 @@ class Derived:
     cap_air: jax.Array    # scalar
 
 
-@struct.dataclass
+@pytree_dataclass
 class ModelState:
     """Prognostic state carried across steps (incl. the prognostic-ish
     cap_surf mutated by seaice; src/greb.f90:268,472-492)."""
@@ -66,7 +66,7 @@ class ModelState:
     cap_surf: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class Corrections:
     """Per-ityr flux-correction tables learned in the spin-up phase
     (src/greb.f90:344-355)."""

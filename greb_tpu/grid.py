@@ -372,7 +372,7 @@ def month_average_matrix(jday_mon: Tuple[int, ...], ndt_days: int) -> np.ndarray
     """(12, nstep_yr) float32 matrix M with M[m,t] = 1/steps_in_month(m) for
     steps t falling in month m, else 0.  ``monthly = einsum('mt,t...->m...')``
     reproduces the reference monthly means (src/greb.f90:973-982) as a single
-    MXU matmul instead of 60 scalar-triggered flushes."""
+    matmul instead of 60 scalar-triggered flushes."""
     nstep = sum(jday_mon) * ndt_days
     out = np.zeros((len(jday_mon), nstep), F32)
     t = 0

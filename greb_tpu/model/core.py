@@ -1,14 +1,14 @@
 """Model core: tendencies, time step, and the two integration phases.
 
-Reproduces (TPU-natively) the reference control flow:
+Reproduces the reference control flow:
   greb_model (src/greb.f90:161-236)
     -> qflux_correction (:311-364)      [spin-up phase]
     -> scenario loop -> time_loop (:239-274) -> tendencies (:277-308)
 
 Design: one 12-hour step is a pure function ``(state, step_forcing) ->
 (state, outputs)``; a year is ``lax.scan`` over the 730-entry forcing
-pytree (no dynamic gathers); monthly means are one (12, 730) matmul over
-the stacked step outputs (MXU) instead of the reference's per-step
+pytree (no dynamic gathers); monthly means accumulate in the scan carry
+(see run_year_scenario) instead of the reference's per-step
 accumulate-and-flush (src/greb.f90:962-987).
 """
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from .._pytree import pytree_dataclass
 from ..config import Experiment, Numerics, PhysicsParams
 from ..forcing import ClimForcing, Corrections, Derived, ModelState
 from ..grid import Grid, month_average_matrix
@@ -35,7 +35,7 @@ F32 = np.float32
 # ---------------------------------------------------------------------------
 # Per-step forcing slices (the xs of the year scan)
 # ---------------------------------------------------------------------------
-@struct.dataclass
+@pytree_dataclass
 class StepForcing:
     tclim: jax.Array    # (t,y,x)
     qclim: jax.Array
@@ -88,7 +88,7 @@ class Tendencies(NamedTuple):
     dto: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class ModelData:
     """Everything time-constant the step needs (device arrays)."""
     params: PhysicsParams
@@ -140,7 +140,7 @@ def compute_tendencies(state: ModelState, fx, co2, md: ModelData,
         # coefficient-folded fast path (batched Ta, q along the F axis);
         # the const pytree's type selects the v1 (banded) or v2 (uniform
         # masked) fold — see ops/fastcirc.py and ops/fastcirc2.py.  A third
-        # tuple element (MxuConst) switches the zonal applies to the MXU
+        # tuple element (MxuConst) switches the zonal applies to the
         # matmul formulation for large member batches.
         plan, const = fastcirc[0], fastcirc[1]
         mxu = fastcirc[2] if len(fastcirc) > 2 else None
@@ -151,12 +151,6 @@ def compute_tendencies(state: ModelState, fx, co2, md: ModelData,
             cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
             dx2 = fc2.sharded_circulation(x2, cf_t, const, plan, nsub,
                                           extend, unroll=unroll_circ)
-        elif isinstance(mxu, fc2.MxuMembers):
-            # in-kernel member-batched MXU formulation (Pallas multiyear
-            # member kernels; state (MB, 2, Y, X))
-            cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
-            dx2 = fc2.mxu_members_circulation(x2, cf_t, const, mxu, plan,
-                                              nsub, unroll=unroll_circ)
         elif mxu is not None:
             cf_t = fc2.step_coeffs(fx.u, fx.v, const, plan)
             dx2 = fc2.mxu_circulation(x2, cf_t, const, mxu, plan, nsub,

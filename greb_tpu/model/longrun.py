@@ -4,17 +4,15 @@ The reference cannot restart: state lives in Fortran module arrays and the
 binary output keeps monthly means only (src/greb.f90:978-982), so a crash
 loses the whole run.  Here a long scenario integrates in chunks of years;
 after each chunk the prognostic state + the 730-slot correction tables +
-a scalar cursor go to the ``Checkpointer`` (orbax when available, npz
-otherwise), and a fresh process resumes BIT-EXACTLY from the last
-checkpoint (the year runner is deterministic and the checkpoint captures
-its full carry — tests/test_config5.py proves equality against an
-uninterrupted run).
+a scalar cursor go to the ``Checkpointer`` (io/checkpoint.py), and a
+fresh process resumes BIT-EXACTLY from the last checkpoint (the year
+runner is deterministic and the checkpoint captures its full carry —
+tests/test_config5.py proves equality against an uninterrupted run).
 
-The chunk body is pluggable so the same loop drives the single-chip
-driver (``GREB.run_scenario``), the fused multi-year Pallas path
-(``years_per_call``), and the shard_map runners over a device mesh —
-checkpointing gathers addressable shards via np.asarray, resume re-shards
-through ``parallel.sharded.shard_inputs``.
+The chunk body is pluggable so the same loop drives the single-device
+driver (``GREB.run_scenario``) and the shard_map runners over a device
+mesh — checkpointing gathers addressable shards via np.asarray, resume
+re-shards through ``parallel.sharded.shard_inputs``.
 """
 from __future__ import annotations
 
@@ -72,19 +70,16 @@ def run_long(total_years: int, state: ModelState, corr: Corrections,
                                co2=float(co2_series[done - 1]))
             if done == total_years or done % checkpointer.every == 0:
                 checkpointer.save(done, state, corr, cursor)
-    if checkpointer is not None:
-        checkpointer.wait_until_finished()       # final save must be durable
     return state, corr, start
 
 
 def driver_year_runner(model, output_path: Optional[str] = None,
-                       years_per_call: int = 1,
                        collect_monthly: bool = False) -> YearRunner:
-    """A ``run_years`` chunk body over ``GREB.run_scenario`` (single-chip /
-    Pallas multi-year path).  Output records append across chunks AND
-    across crash-resumes: the writer opens lazily, positioned at the
-    record implied by the (possibly resumed) start year, so months written
-    before a crash are kept and nothing is duplicated."""
+    """A ``run_years`` chunk body over ``GREB.run_scenario`` (single
+    device).  Output records append across chunks AND across crash-resumes:
+    the writer opens lazily, positioned at the record implied by the
+    (possibly resumed) start year, so months written before a crash are
+    kept and nothing is duplicated."""
     box = {"writer": None, "year": 0}
     months_per_year = len(model.num.jday_mon)
 
@@ -100,8 +95,7 @@ def driver_year_runner(model, output_path: Optional[str] = None,
     def run_years(state, corr, co2_chunk):
         state, monthly, _ = model.run_scenario(
             corr, state=state, years=len(co2_chunk), co2_series=co2_chunk,
-            collect_monthly=collect_monthly or bool(output_path),
-            years_per_call=years_per_call)
+            collect_monthly=collect_monthly or bool(output_path))
         w = _writer()
         if w is not None:
             for m in monthly:

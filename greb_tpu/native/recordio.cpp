@@ -2,7 +2,7 @@
 //
 // The reference does sequential Fortran direct-access reads of fixed-length
 // float32 records (src/greb.f90:1018-1027, 1073-1085).  This library is the
-// TPU-framework's data-loader fast path: batched pread/pwrite with the GIL
+// framework's data-loader fast path: batched pread/pwrite with the GIL
 // released (the Python side calls through ctypes), an optional parallel
 // reader thread pool for the 13.5 MB climatology sweeps, and O_DIRECT-free
 // page-cache-friendly access.

@@ -2,7 +2,7 @@
 
 The strict stencil path (ops/stencils.py) evaluates the reference formulas
 term-by-term each substep: at 96x48 a year spends ~35k substeps whose cost is
-pure VPU issue — ~3000 vector-register ops per substep, dominated by the
+pure elementwise work — ~150 ops over the field per substep, dominated by the
 masked polar sub-cycle.  But the circulation operator is LINEAR in the
 transported field (reference src/greb.f90:556-915): every stencil
 (7-point zonal diffusion :617-626, 2-point upwind advection :798-836,
@@ -31,9 +31,9 @@ the polar sub-cycles (src/greb.f90:715, :907), which are the ONLY
 nonlinearities, are kept exactly: the polar bands still iterate, on
 statically-compacted row groups (rows needing k iterations form
 prefixes/suffixes of the bands because dxlat shrinks monotonically toward
-the poles, so every iteration level is a static slice — Pallas-safe).
+the poles, so every iteration level is a static slice).
 Rows whose iteration count exceeds LOWRANK_N collapse into precomputed
-composite operators (I+C)^n — dense and exact where they fit in VMEM,
+composite operators (I+C)^n — dense and exact while they stay small,
 SVD-truncated at refined grids where n reaches the thousands.
 
 Not supported here (falls back to the strict path): legacy experiment
@@ -50,8 +50,8 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from .._pytree import pytree_dataclass
 from ..grid import Grid
 from . import stencils as stc
 
@@ -63,9 +63,8 @@ F64 = np.float64
 _LON_IDX_SHIFT = ((0, 3), (1, 2), (2, 1), (4, -1), (5, -2), (6, -3))
 
 # rows whose diffusion sub-cycle exceeds this iterate via the SVD-truncated
-# composite; below it, explicit iteration is cheaper and exact.  Tuned on a
-# TPU v5e at 384x192 (N=2/4/8/16/32/64 -> 33/44/45/41/31/21 M point-steps/s;
-# the explicit chains are latency-bound, so fold early).
+# composite; below it, explicit iteration is exact.  The explicit chains are
+# latency-bound, so fold early (not yet tuned on the GPU).
 LOWRANK_N = 8
 # singular values below this fraction of the largest are truncated
 LOWRANK_TOL = 3e-7
@@ -84,7 +83,7 @@ class FastPlan:
     adv_segs: Tuple[Tuple[int, int, int], ...]
     # diffusion extra-iteration strategy (see build_tables):
     #   "dense"   — exact composite row operators (I+C)^(n-1), all rows with
-    #               n>1; chosen while they fit comfortably in VMEM (96x48)
+    #               n>1; chosen while they stay small (96x48)
     #   "lowrank" — refined grids: rows with n > LOWRANK_N get an SVD-
     #               truncated composite (their spectrum collapses for large
     #               n); rows with 1 < n <= LOWRANK_N iterate explicitly
@@ -141,7 +140,7 @@ _B_PAP1, _B_PAP2, _B_PAP3 = 13, 14, 15  # x u_p -> pac[p1,p2,p3]
 N_BAND = 16
 
 
-@struct.dataclass
+@pytree_dataclass
 class FastConst:
     """Time-constant device arrays (small: ~25 field-sized constants; the
     per-step coefficients are assembled ON DEVICE from these + the step's
@@ -159,7 +158,7 @@ class FastConst:
     pcw: jax.Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class FastCoeffs:
     """One step's assembled coefficients (built on device by step_coeffs;
     constant across the step's 24 circulation substeps)."""
@@ -329,7 +328,7 @@ def make_plan(grid: Grid) -> FastPlan:
     top = slice(0, bt)
     bot = slice(R - bb, R)
 
-    # composite strategy: dense while all n>1 rows fit comfortably in VMEM,
+    # composite strategy: dense while all n>1 rows stay small (<= 4 MiB),
     # else SVD-truncated composites for the huge-n rows only ((I+C)^n has a
     # collapsed spectrum for large n; moderate-n rows iterate explicitly)
     if bt + bb == 0 or not (np.concatenate([d2[top], d2[bot]]) > 1).any():
@@ -582,10 +581,8 @@ def _apply_composite(t1: jax.Array, const: FastConst,
     """Apply the precomputed extra-iteration composite to the band.
 
     Only the comp_kt top / comp_kb bottom band rows change; the rest pass
-    through.  Inside Pallas kernels only a plain 2-D dot lowers, so the
-    per-row operators are stacked side by side: Z = R (G,X) @ pcat (X,G*X),
-    then row g takes diagonal block Z[g, gX:(g+1)X].  The vmapped/XLA path
-    (leading batch dims) uses the batched einsum form instead."""
+    through.  An unbatched band applies each row's operator as a plain
+    2-D dot; batched bands (leading member dims) use one batched einsum."""
     F, B, X = t1.shape[-3], t1.shape[-2], t1.shape[-1]
     ktc, kbc = plan.comp_kt, plan.comp_kb
     if ktc + kbc == 0:
@@ -609,7 +606,7 @@ def _apply_composite(t1: jax.Array, const: FastConst,
                                 y[..., ktc:, :]], axis=-2)
 
     def _row(tf_row, f, k):
-        # (1, X) @ composite — plain 2-D dots (Mosaic-lowerable)
+        # (1, X) @ composite — plain 2-D dots
         if lowrank:
             z = jnp.dot(tf_row, const.pcu[f, k],
                         preferred_element_type=jnp.float32,
@@ -663,12 +660,9 @@ def substep(x: jax.Array, cf: FastCoeffs, const: FastConst,
             t2 = _apply_composite(t1, const, plan)
             t1 = t1 + _clamped(t2 - t1, t1)
             dtxd = t1 - xb
-        # NOTE: sharing one set of xb rolls between the two stencils measured
-        # SLOWER (72 vs 81 yr/s at 96x48) — materializing the rolls blocks
-        # Mosaic from fusing them into the multiply-adds
         dtxa = _band_increment(xb, cf.pac, plan.adv_segs, B)
         bdx = const.band[_B_WZ] * dtxd + dtxa
-        # static-slice concatenation (Pallas-lowerable)
+        # static-slice concatenation
         dx = jnp.concatenate([
             dx[..., :bt, :] + bdx[..., :bt, :],
             dx[..., bt:Y - bb, :],

@@ -3,8 +3,8 @@
 The v1 fold (ops/fastcirc.py) treats the polar bands as a SEPARATE compute
 path: the band rows are gathered into a (F, B, X) slab and run their own
 7-point applies, clamps, and composites.  At 96x48 that band work is ~45
-small vector ops per substep — about half the measured substep latency on a
-TPU v5e, because each op pays issue overhead regardless of its size.
+small vector ops per substep, each paying a fixed per-op overhead
+regardless of its size.
 
 This module folds the polar-band zonal stencils into the SAME full-field
 apply as the interior rows.  The key observations (reference
@@ -43,8 +43,8 @@ from typing import Callable, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from .._pytree import pytree_dataclass, static_field
 from ..grid import Grid
 from . import fastcirc as v1
 from . import stencils as stc
@@ -63,7 +63,7 @@ _MD_KM1, _MD_KP1, _C0_MD = 0, 1, 2
 _MAM2, _MAM1, _MAP1, _MAP2, _MA0M, _MA0P = 3, 4, 5, 6, 7, 8
 
 
-@struct.dataclass
+@pytree_dataclass
 class Fast2Const:
     """Time-constant device arrays of the uniform fold."""
     zd: jax.Array       # (7, F, Y, X) zonal diffusion [m3,m2,m1,c,p1,p2,p3]
@@ -77,8 +77,8 @@ class Fast2Const:
     # PACKED composites only ("packed" comp_mode): (F*K, Rtot) 0/1 block-
     # diagonal mask — block b = (f*K + k) owns the column range of its own
     # SVD factors, so   t2 = ((T @ pcu) * pmask) @ pcw   computes every
-    # row's composite in TWO plain 2-D matmuls (MXU- and Mosaic-friendly;
-    # per-row ADAPTIVE ranks concatenate along Rtot with no padding waste).
+    # row's composite in TWO plain 2-D matmuls (per-row ADAPTIVE ranks
+    # concatenate along Rtot with no padding waste).
     # Zero-masked cross terms contribute exact f32 zeros.
     pmask: jax.Array = None
 
@@ -89,7 +89,7 @@ class Fast2Const:
 N_COEF_PLANES = 7 + 8 + 9 + 1
 
 
-@struct.dataclass
+@pytree_dataclass
 class Fast2Coeffs:
     """One step's assembled coefficients (member-independent)."""
     za: jax.Array       # (7, F, Y, X) zonal advection [m3,m2,m1,c,p1,p2,p3]
@@ -136,7 +136,7 @@ def build_packed_composites(pdc64: np.ndarray, n_extra: np.ndarray,
     factors concatenated along one axis, so the whole composite block
     applies as two plain 2-D matmuls plus a 0/1 mask (see Fast2Const.pmask).
     Replaces the per-row lowrank loop (56 small dots/substep at 384x192)
-    with MXU-shaped work on both the XLA and Pallas paths.
+    with two large matmuls.
 
     Returns (U_all (X, Rtot) f32, W_all (Rtot, X) f32, mask (F*K, Rtot))."""
     rows_fb, pc64 = v1.composite_mats(pdc64, n_extra, ktc, kbc, F, B, X)
@@ -163,6 +163,37 @@ def build_packed_composites(pdc64: np.ndarray, n_extra: np.ndarray,
     return u_all, w_all, mask
 
 
+def _zonal_diffusion64(wz_air: np.ndarray, wz_vapor: np.ndarray,
+                       grid: Grid, st: stc.StencilStatic,
+                       kappa: float) -> np.ndarray:
+    """(7, F, Y, X) float64 zonal-diffusion coefficients, one per row and
+    no outer wz.  Interior rows: cc = kappa*dt_crcl/dxlat^2
+    (src/greb.f90:582); polar rows: cc = kappa*dtdff2/dxlat^2 (:654).
+
+    Each point's seven coefficients sum to zero, so the operator conserves
+    the zonal mean.  Composite powers (I+C)^n must be built from these
+    float64 values: float32 rounding breaks the zero sum, and n in the
+    thousands turns that into a drift of the mean of order n * 1e-8."""
+    wz2 = np.stack([np.asarray(wz_air, F64), np.asarray(wz_vapor, F64)])
+    w = v1._np_lon_shifts(wz2)
+    Y = grid.ydim
+    col = lambda a: np.asarray(a, F64).reshape(Y, 1)
+    kap = F64(F32(kappa))
+    polar = np.asarray(grid.polar_rows, bool).reshape(Y, 1)
+    cc_in = kap * F64(F32(st.dt_crcl)) / col(grid.dxlat.astype(F64) ** 2)
+    cc_po = kap * col(grid.diff_sched.dtdff2) / col(grid.dxlat.astype(F64) ** 2)
+    ccd = np.where(polar, cc_po, cc_in) / 20.0
+    return np.stack([
+        ccd * w["m3"],
+        ccd * (3.0 * w["m2"] - w["m3"]),
+        ccd * (6.0 * w["m1"] - 3.0 * w["m2"]),
+        ccd * (-6.0 * (w["m1"] + w["p1"])),
+        ccd * (6.0 * w["p1"] - 3.0 * w["p2"]),
+        ccd * (3.0 * w["p2"] - w["p3"]),
+        ccd * w["p3"],
+    ])
+
+
 def build_const(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
                 st: stc.StencilStatic, kappa: float,
                 plan: Optional[FastPlan] = None,
@@ -186,21 +217,7 @@ def build_const(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
     polar = np.asarray(grid.polar_rows, bool).reshape(Y, 1)
     adv = 1.0 if include_advection else 0.0
 
-    # --- zonal diffusion: one coefficient per row, no outer wz -------------
-    # interior rows: cc = kappa*dt_crcl/dxlat^2 (src/greb.f90:582)
-    # polar rows:    cc = kappa*dtdff2/dxlat^2  (:654), per-row static
-    cc_in = kap * dtc / col(grid.dxlat.astype(F64) ** 2)
-    cc_po = kap * col(grid.diff_sched.dtdff2) / col(grid.dxlat.astype(F64) ** 2)
-    ccd = np.where(polar, cc_po, cc_in) / 20.0
-    zd = np.stack([
-        ccd * w["m3"],
-        ccd * (3.0 * w["m2"] - w["m3"]),
-        ccd * (6.0 * w["m1"] - 3.0 * w["m2"]),
-        ccd * (-6.0 * (w["m1"] + w["p1"])),
-        ccd * (6.0 * w["p1"] - 3.0 * w["p2"]),
-        ccd * (3.0 * w["p2"] - w["p3"]),
-        ccd * w["p3"],
-    ])
+    zd = _zonal_diffusion64(wz_air, wz_vapor, grid, st, kappa)
 
     # --- zonal advection wind multipliers -----------------------------------
     # interior rows: 2-point upwind /3 (src/greb.f90:798-836)
@@ -295,8 +312,7 @@ def _apply7_rolled(rolls, x, coef):
     """sum_s coef[s] * roll(x, s) with the 6 rolls precomputed/shared.
 
     Balanced-tree accumulation: the substep is latency-bound on this chain
-    at small grids (the VPU sits mostly idle at 96x48), so a depth-3 tree
-    beats the depth-7 sequential sum."""
+    at small grids, so a depth-3 tree beats the depth-7 sequential sum."""
     terms = [coef[3] * x] + [coef[i] * r
                              for (i, _), r in zip(_LON_IDX_SHIFT, rolls)]
     while len(terms) > 1:
@@ -315,7 +331,7 @@ def _masked_clamp(d, x, band):
 
 def _row_dot(t_row: jax.Array, f: int, k: int, const: Fast2Const,
              lowrank: bool) -> jax.Array:
-    """(..., X) x composite[f, k] — plain 2-D dots (Mosaic-lowerable)."""
+    """(..., X) x composite[f, k] — plain 2-D dots."""
     lead = t_row.shape[:-1]
     flat = t_row.reshape((-1, t_row.shape[-1])) if t_row.ndim != 2 else t_row
     if lowrank:
@@ -453,26 +469,24 @@ def _extra_advection(x, da, cf: Fast2Coeffs, plan: FastPlan):
 
 
 # ---------------------------------------------------------------------------
-# MXU (matmul) formulation for large member batches
+# matmul formulation for large member batches
 # ---------------------------------------------------------------------------
-# At 96x48 the VPU roll+FMA substep is tile-throughput-bound: batching M
-# members multiplies the tile work, capping the chip at ~150 aggregate
-# member-yr/s.  But each zonal apply is x_row @ Z_row with a (X, X) banded
-# matrix SHARED across members — at M >= ~64 a batched einsum on the MXU
-# (128x128 systolic array) does the same math ~3x faster per member.  The
-# matrices are exact densifications of the 7-band coefficients (the extra
-# X-7 zero terms cannot change a float32 sum), so results match the VPU
-# fold bit-for-bit up to contraction order.
+# Each zonal apply is x_row @ Z_row with a (X, X) banded matrix SHARED
+# across members, so for a large member batch M the roll+FMA substep can
+# instead run as batched (M, X) @ (X, X) matmuls.  The matrices are exact
+# densifications of the 7-band coefficients (the extra X-7 zero terms
+# cannot change a float32 sum), so at precision "highest" results match the
+# elementwise fold up to contraction order.
 
-@struct.dataclass
+@pytree_dataclass
 class MxuConst:
     zd_mat: jax.Array   # (F, Y, X, X) dense zonal-diffusion row matrices
     shift1h: jax.Array  # (7, X, X) one-hot shift tensors (densify za per step)
-    # matmul precision of the zonal applies: "high" (bf16_3x, ~2^-21
-    # relative — the production default, 1.34x the aggregate throughput) or
-    # "highest" (exact f32) — selectable so the ensemble path can honour
-    # the same fidelity contract as the single-run path (VERDICT r2 #5)
-    precision: str = struct.field(pytree_node=False, default="high")
+    # matmul precision of the zonal applies: "highest" (full float32, the
+    # same fidelity contract as the single-run path; the default) or "high"
+    # (on an H100, TF32 tensor-core passes: ~10 mantissa bits per operand —
+    # error measured in tests/test_mxu.py and PERF.md)
+    precision: str = static_field(default="highest")
     # mode selects the per-substep matmul structure:
     #   "pair"    two batched matmuls (diffusion / advection) — default
     #   "stacked" ONE matmul with the two matrices stacked along the
@@ -481,14 +495,12 @@ class MxuConst:
     #   "fused"   ONE matmul of the pre-folded zc = wz*zd + za for interior
     #             rows, band rows recomputed on small slabs.  Different
     #             float32 grouping (coefficients pre-multiplied by wz) —
-    #             parity pinned in tests/test_mxu.py.  Measured SLOWER at
-    #             M=256 on v5e (slab fix-up concats outweigh the saved
-    #             matmul); kept for bigger-M/worse-issue regimes.
-    mode: str = struct.field(pytree_node=False, default="pair")
+    #             parity pinned in tests/test_mxu.py.
+    mode: str = static_field(default="pair")
 
 
 def build_mxu(const: Fast2Const, plan: FastPlan,
-              precision: str = "high", mode: str = "pair") -> MxuConst:
+              precision: str = "highest", mode: str = "pair") -> MxuConst:
     """Densify the constant zonal-diffusion coefficients into per-row
     matrices and precompute the one-hot shift tensors used to densify the
     per-step advection coefficients on device."""
@@ -521,13 +533,12 @@ def adv_matrix(za: jax.Array, mxu: MxuConst) -> jax.Array:
 
 
 def _row_matmul(x: jax.Array, mat: jax.Array,
-                precision: str = "high") -> jax.Array:
-    """(..., F, Y, X) x (F, Y, X, X) batched over (F, Y) rows (MXU).
+                precision: str = "highest") -> jax.Array:
+    """(..., F, Y, X) x (F, Y, X, X) batched over (F, Y) rows.
 
-    Precision "high" (bf16_3x passes): ~2^-21 relative error on these
-    magnitudes — same order as the float32 reassociation the folds already
-    accept — at 1.34x the aggregate throughput of "highest" (exact f32;
-    measured on v5e at M=256: 257 vs 192 member-yr/s)."""
+    ``precision`` names a ``jax.lax.Precision``: "highest" keeps full
+    float32; "high" lets the backend use reduced-precision passes (TF32 on
+    an H100), whose error is measured in tests/test_mxu.py."""
     prec = (jax.lax.Precision.HIGHEST if precision == "highest"
             else jax.lax.Precision.HIGH)
     return jnp.einsum('...fyx,fyxz->...fyz', x, mat,
@@ -538,7 +549,7 @@ def _row_matmul(x: jax.Array, mat: jax.Array,
 def mxu_substep(x: jax.Array, cf: Fast2Coeffs, za_mat: jax.Array,
                 const: Fast2Const, mxu: MxuConst, plan: FastPlan
                 ) -> jax.Array:
-    """One dt_crcl substep with the zonal applies on the MXU."""
+    """One dt_crcl substep with the zonal applies as matmuls."""
     Y = x.shape[-2]
     dd = _row_matmul(x, mxu.zd_mat, mxu.precision)
     dd = _masked_clamp(dd, x, const.band)
@@ -626,9 +637,8 @@ def mxu_substep_fused(x: jax.Array, cf: Fast2Coeffs, zc_mat: jax.Array,
     """One dt_crcl substep: ONE combined matmul (wz*zd + za pre-folded)
     for every row, then the band slabs (top bt / bottom bb rows, where the
     zonal increments clamp and the deep rows composite) recomputed exactly
-    and overwritten.  Halves the MXU issue count per substep vs
-    mxu_substep and drops the full-field clamps/multiplies — the big-M
-    throughput path (VERDICT r3: aggregate-ensemble gap)."""
+    and overwritten.  Halves the matmul count per substep vs
+    mxu_substep and drops the full-field clamps/multiplies."""
     Y = x.shape[-2]
     bt, bb = plan.bt, plan.bb
     dc = _row_matmul(x, zc_mat, mxu.precision)
@@ -691,7 +701,8 @@ def mxu_substep_stacked(x: jax.Array, cf: Fast2Coeffs, dz_mat: jax.Array,
 def mxu_circulation(x: jax.Array, cf: Fast2Coeffs, const: Fast2Const,
                     mxu: MxuConst, plan: FastPlan, nsub: int,
                     unroll=False) -> jax.Array:
-    """Sub-cycled circulation increment, MXU formulation (large batches)."""
+    """Sub-cycled circulation increment, matmul formulation (large
+    batches)."""
     za_mat = adv_matrix(cf.za, mxu)
     if plan.seq_zonal:
         # sequential zonal splitting: advection's input depends on the
@@ -731,138 +742,6 @@ def extend_lat_zero(x: jax.Array, width: int) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# member-batched MXU formulation for INSIDE Pallas kernels
-# ---------------------------------------------------------------------------
-# The VMEM-resident member-batched multiyear kernel (ops/pallas/multiyear)
-# is VPU-tile-throughput-bound with the fold (~125 member-yr/s measured at
-# mb 8/16/32, round 5) — the same wall the XLA path escapes via the MXU
-# (build_mxu).  This variant brings the MXU formulation INTO the kernel:
-# the state transposes once per step to (F*Y, MB, X) so both zonal applies
-# run as ONE row-batched (FY, MB, X) @ (FY, X, 2X) dot per substep with the
-# member axis filling the systolic array, and intermediates never touch HBM
-# (the XLA path's ~60% overhead, PERF.md).  Mosaic rejects
-# precision=HIGH on in-kernel dots, so "bf16_3x" emulates it with an
-# explicit 3-pass bf16 split (identical error model: ~2^-21 relative);
-# "highest" uses exact-f32 dots.
-
-@struct.dataclass
-class MxuMembers:
-    """Constants of the in-kernel member-batched MXU circulation."""
-    zd_mat: jax.Array   # (F, Y, X, X) dense zonal-diffusion row matrices
-    shift1h: jax.Array  # (7, X, X) one-hot shift tensors
-    precision: str = struct.field(pytree_node=False, default="bf16_3x")
-
-
-def build_mxu_members(const: Fast2Const, plan: FastPlan,
-                      precision: str = "bf16_3x") -> MxuMembers:
-    assert precision in ("bf16_3x", "highest"), precision
-    base = build_mxu(const, plan, precision="highest")
-    return MxuMembers(zd_mat=base.zd_mat, shift1h=base.shift1h,
-                      precision=precision)
-
-
-def _dot_b(x, mat, precision: str):
-    """(B, M, X) x (B, X, Z) batched over B.  "bf16_3x": 3-pass bf16 split
-    (hi@hi + hi@lo + lo@hi), the HIGH error model Mosaic can't express as
-    a precision flag in-kernel; "highest": exact f32."""
-    dims = (((2,), (1,)), ((0,), (0,)))
-    if precision == "bf16_3x":
-        xh = x.astype(jnp.bfloat16)
-        xl = (x - xh.astype(jnp.float32)).astype(jnp.bfloat16)
-        mh = mat.astype(jnp.bfloat16)
-        ml = (mat - mh.astype(jnp.float32)).astype(jnp.bfloat16)
-        d = lambda a, b: jax.lax.dot_general(
-            a, b, dims, preferred_element_type=jnp.float32)
-        return d(xh, mh) + d(xh, ml) + d(xl, mh)
-    return jax.lax.dot_general(x, mat, dims,
-                               precision=jax.lax.Precision.HIGHEST,
-                               preferred_element_type=jnp.float32)
-
-
-def mxu_members_circulation(x2: jax.Array, cf: Fast2Coeffs,
-                            const: Fast2Const, mm: MxuMembers,
-                            plan: FastPlan, nsub: int,
-                            unroll=False) -> jax.Array:
-    """Sub-cycled circulation increment for (MB, F, Y, X) member batches,
-    substep math identical to mxu_substep_stacked (same dot per row, same
-    clamp/composite/meridional order) with the member axis as the matmul
-    rows.  Supports the 96x48-class schedule shape only (no explicit
-    segments; dense composites) — exactly the grids whose per-op tiles are
-    small enough for member batching to pay."""
-    assert plan.diff_segs == () and plan.adv_segs == (), \
-        "member-MXU kernel supports segment-free schedules only (96x48)"
-    assert plan.comp_mode == "dense" and not plan.seq_zonal
-    MB, Fd = x2.shape[0], x2.shape[1]
-    Y, X = plan.ydim, plan.xdim
-
-    # densify this step's advection coefficients WITHOUT einsum (7 diagonal
-    # broadcast-scatter terms lower cleanly in Mosaic); stack with the
-    # constant diffusion matrices: one (FY, X, 2X) operand per step
-    za_mat = None
-    for s in range(7):
-        term = cf.za[s][:, :, None, :] * mm.shift1h[s]      # (F, Y, X, X)
-        za_mat = term if za_mat is None else za_mat + term
-    dz = jnp.concatenate([mm.zd_mat, za_mat], axis=-1)      # (F, Y, X, 2X)
-    dzr = dz.reshape(Fd * Y, X, 2 * X)
-
-    band_m = jnp.tile(const.band, (Fd, 1))[..., None]       # (FY, 1, 1)
-    wz_m = const.wz.reshape(Fd * Y, 1, X)
-    c0m_m = cf.c0m[:, :, None, :]                           # (F, Y, 1, X)
-    mc_m = cf.mc[:, :, :, None, :]                          # (4, F, Y, 1, X)
-
-    def substep(xf):                                        # (FY, MB, X)
-        both = _dot_b(xf, dzr, mm.precision)                # (FY, MB, 2X)
-        dd = both[..., :X]
-        da = both[..., X:]
-        dd = jnp.where(jnp.logical_and(band_m, dd <= -xf),
-                       F32(-0.9) * xf, dd)
-        # dense pole composites: static row slices reassembled by concat
-        # (Mosaic has no scatter; indices are static anyway)
-        kt, kb = plan.comp_kt, plan.comp_kb
-        segs = []
-        for f in range(Fd):
-            base = f * Y
-
-            def comp_one(r, k):
-                t1 = xf[base + r] + dd[base + r]            # (MB, X)
-                t2 = jnp.dot(t1, const.pcomp[f, k],
-                             preferred_element_type=jnp.float32,
-                             precision=jax.lax.Precision.HIGHEST)
-                t1 = t1 + v1._clamped(t2 - t1, t1)
-                return (t1 - xf[base + r])[None]            # (1, MB, X)
-
-            segs += [comp_one(r, j) for j, r in enumerate(range(kt))]
-            segs.append(dd[base + kt:base + Y - kb])
-            segs += [comp_one(Y - kb + j, kt + j) for j in range(kb)]
-        dd = jnp.concatenate(segs, axis=0)
-        da = jnp.where(jnp.logical_and(band_m, da <= -xf),
-                       F32(-0.9) * xf, da)
-        xr = xf.reshape(Fd, Y, MB, X)
-        xe = jnp.pad(xr, ((0, 0), (2, 2), (0, 0), (0, 0)))
-        dy = c0m_m * xr
-        dy = dy + mc_m[0] * xe[:, 0:Y]
-        dy = dy + mc_m[1] * xe[:, 1:Y + 1]
-        dy = dy + mc_m[2] * xe[:, 3:Y + 3]
-        dy = dy + mc_m[3] * xe[:, 4:Y + 4]
-        return xf + wz_m * dd + da + dy.reshape(Fd * Y, MB, X)
-
-    x = x2.transpose(1, 2, 0, 3).reshape(Fd * Y, MB, X)     # once per step
-    if unroll is True:
-        xc = x
-        for _ in range(nsub):
-            xc = substep(xc)
-    elif isinstance(unroll, int) and 1 < unroll <= nsub and nsub % unroll == 0:
-        def block(i, xc):
-            for _ in range(unroll):
-                xc = substep(xc)
-            return xc
-        xc = jax.lax.fori_loop(0, nsub // unroll, block, x)
-    else:
-        xc = jax.lax.fori_loop(0, nsub, lambda i, xc: substep(xc), x)
-    return (xc - x).reshape(Fd, Y, MB, X).transpose(2, 0, 1, 3)
-
-
-# ---------------------------------------------------------------------------
 # latitude-sharded variant
 # ---------------------------------------------------------------------------
 # Under shard_map every shard must run the SAME program.  The uniform fold
@@ -899,9 +778,9 @@ class ShardPlan:
     la_levels: int           # extra advection iterations (global max - 1)
     comp_mode: str           # "dense" | "lowrank" | "none"
     # issue the ppermute halo exchange BEFORE the interior zonal work, so
-    # the async collective-permute (start/done pair on TPU) overlaps with
-    # the shard-local applies; the math is identical either way (the halo
-    # feeds only the meridional pass), so this is purely a scheduling hint
+    # the asynchronous collective-permute can overlap the shard-local
+    # applies; the math is identical either way (the halo feeds only the
+    # meridional pass), so this is purely a scheduling hint
     overlap_halo: bool = True
     # sequential zonal splitting on extension grids (see FastPlan.seq_zonal)
     seq_zonal: bool = False
@@ -911,7 +790,7 @@ class ShardPlan:
         return self.ydim // self.n_shards
 
 
-@struct.dataclass
+@pytree_dataclass
 class Fast2ShardConst:
     """Global (shardable) arrays of the sharded fast path.  Field arrays
     shard along their Y axis; the stacked composite arrays shard along the
@@ -1047,7 +926,7 @@ def build_sharded(wz_air: np.ndarray, wz_vapor: np.ndarray, grid: Grid,
     if mode != "none":
         # global composite operators for the kt_g + kb_g rows
         bidx = np.r_[np.arange(kt_g), np.arange(Y - kb_g, Y)]
-        zd64 = np.asarray(const.zd, np.float64)
+        zd64 = _zonal_diffusion64(wz_air, wz_vapor, grid, st, kappa)
         pdc64 = zd64[:, :, bidx, :]
         n_extra = d2[bidx] - 1
         gplan = FastPlan(ydim=Y, xdim=X, bt=kt_g, bb=kb_g, diff_segs=(),
@@ -1103,10 +982,9 @@ def _sharded_extra_diffusion(x, dd, const: Fast2ShardConst, splan: ShardPlan):
     """Composite rows at the local top/bottom (identity-flagged padding on
     shards that own fewer composite rows).
 
-    All rows of a slab apply in ONE batched einsum over (F, rows) — this is
-    the XLA sharded path (never inside a Pallas kernel), so batched dots are
-    fine and keep the graph size independent of the composite row count
-    (96 rows/shard at 768x384)."""
+    All rows of a slab apply in ONE batched einsum over (F, rows), which
+    keeps the graph size independent of the composite row count (96
+    rows/shard at 768x384)."""
     if splan.comp_mode == "none" or (splan.kct + splan.kcb) == 0:
         return dd
     R = x.shape[-2]
@@ -1188,8 +1066,8 @@ def sharded_substep(x, cf: Fast2Coeffs, const: Fast2ShardConst,
 
     With ``splan.overlap_halo`` the exchange is issued FIRST: the zonal
     applies (rolls, clamps, composites, advection sub-cycles) depend only
-    on local rows, so the collective-permute rides the ICI while the VPU
-    works through them (halo/compute overlap, SURVEY §2.4)."""
+    on local rows, so the collective-permute can proceed while they run
+    (halo/compute overlap, SURVEY §2.4)."""
     R = x.shape[-2]
     xe = extend(x, 2) if splan.overlap_halo else None
     rolls = [jnp.roll(x, s, axis=-1) for _, s in _LON_IDX_SHIFT]

@@ -26,9 +26,7 @@ def shortwave(ts, cld_t, sw_solar_t, z_topo, glacier,
     """SW radiation with temperature-dependent ice/snow albedo.
     Reference: SWradiation, src/greb.f90:367-403.
 
-    sw_solar_t: (..., y) or (..., y, 1) per-latitude 24h-mean insolation at
-    this step (a trailing length-1 lon axis broadcasts as-is; the 2-D form
-    is what the Pallas year kernel feeds to avoid 1-D lane relayouts).
+    sw_solar_t: (..., y) per-latitude 24h-mean insolation at this step.
     """
     a_atmos = cld_t * p.a_cloud
     land = z_topo >= 0.0
@@ -44,11 +42,7 @@ def shortwave(ts, cld_t, sw_solar_t, z_topo, glacier,
     if exp.fixed_albedo:  # legacy log_exp <= 5 (greb.original.model.f90:394)
         a_surf = jnp.full_like(a_surf, p.a_no_ice)
     albedo = a_surf + a_atmos - a_surf * a_atmos
-    # (..., y) per-latitude forms gain a broadcast lon axis; (..., y, 1)
-    # column forms (Pallas kernels, incl. member-batched) pass through
-    col = (sw_solar_t if sw_solar_t.ndim and sw_solar_t.shape[-1] == 1
-           else sw_solar_t[..., :, None])
-    sw = col * (1.0 - albedo)
+    sw = sw_solar_t[..., :, None] * (1.0 - albedo)
     return SWResult(sw=sw, albedo=albedo)
 
 

@@ -3,12 +3,12 @@
 Reference: subroutines ``diffusion`` (src/greb.f90:556-723), ``advection``
 (:726-915) and ``circulation`` (:528-553).
 
-TPU-first design decisions (vs. the reference's per-row Fortran loops):
+Design decisions (vs. the reference's per-row Fortran loops):
 
 * Fields are (..., R, X) [lat, lon] arrays; all lon stencils are expressed as
   ``jnp.roll`` (periodic) and all lat stencils as static slices of a
   halo-extended array, so the whole operator is a handful of fused
-  elementwise VPU ops — no scalar loops, no dynamic shapes.
+  elementwise ops — no scalar loops, no dynamic shapes.
 * The reference's per-latitude polar CFL sub-cycling
   (:651-718, :838-911) has data-independent iteration counts (they depend
   only on grid geometry + kappa + dt_crcl), so the counts are computed at
@@ -35,8 +35,8 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from .._pytree import pytree_dataclass
 from ..grid import Grid
 
 F32 = np.float32
@@ -54,7 +54,7 @@ def extend_lat_zero(x: jax.Array, width: int) -> jax.Array:
 # ---------------------------------------------------------------------------
 # Per-row constants as arrays (shardable along R)
 # ---------------------------------------------------------------------------
-@struct.dataclass
+@pytree_dataclass
 class StencilFields:
     dxlat2: jax.Array       # (R,1) dxlat**2 [m^2]
     diff_dtdff2: jax.Array  # (R,1) polar diffusion sub-step [s] (0 if unused)
@@ -147,7 +147,7 @@ class LonShifts(NamedTuple):
 
 
 def _quirk_mask(xdim: int) -> jax.Array:
-    # iota-based (not a captured constant) so it is Pallas-kernel-safe
+    # iota-based, not a captured constant
     cols = jax.lax.broadcasted_iota(jnp.int32, (1, xdim), 1)
     return cols == (xdim - 3)  # Fortran j = xdim-2
 
@@ -423,8 +423,7 @@ def circulation(x: jax.Array, wz: jax.Array, u_m, u_p, v_m, v_p,
 
     # unroll: True = fully unrolled; int U > 1 = fori_loop over nsub//U with
     # U substeps per iteration (compile-time / runtime tradeoff); otherwise a
-    # fori_loop (not scan: identical semantics, and it lowers inside
-    # Pallas/Mosaic kernels where scan does not).
+    # fori_loop.
     if unroll is True:
         xc = x
         for _ in range(nsub):

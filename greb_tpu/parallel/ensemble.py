@@ -1,7 +1,7 @@
 """vmapped physics-perturbed ensembles.
 
 The reference supports ensembles only as separate processes writing
-``output_file_ens-id`` files (src/greb.f90:153,1064-1068).  TPU-natively, an
+``output_file_ens-id`` files (src/greb.f90:153,1064-1068).  Here an
 ensemble is ``jax.vmap`` of the whole year-runner over a stacked
 PhysicsParams pytree (every "constant" is a traced leaf) + stacked state and
 correction tables.  Forcing and grid constants stay unbatched (broadcast).
@@ -106,13 +106,13 @@ def make_batched_ensemble_runners(st, num, exp, month_mat, extend=None,
     """Batched (leading-member-axis, no vmap) ensemble runners.
 
     Unlike the vmapped runners, the member axis stays a REAL array axis all
-    the way into the circulation, so the zonal applies can run on the MXU
-    as (M, X) @ (X, X) batched matmuls (fastcirc2.mxu_circulation) — ~3x
-    the aggregate member throughput of the VPU fold at M >= 64 on a v5e.
+    the way into the circulation, so the zonal applies can run as
+    (M, X) @ (X, X) batched matmuls (fastcirc2.mxu_circulation).
     Corrections travel time-major ((t, M, y, x)) to serve as scan xs.
 
-    ``fcdata = (Fast2Const,)`` uses the VPU fold; ``fcdata = (Fast2Const,
-    MxuConst)`` (from fastcirc2.build_mxu) selects the MXU formulation.
+    ``fcdata = (Fast2Const,)`` uses the elementwise fold; ``fcdata =
+    (Fast2Const, MxuConst)`` (from fastcirc2.build_mxu) selects the matmul
+    formulation.
     Per-member params must come from ``batched_model_data`` so scalar
     leaves broadcast as (M, 1, 1).
 

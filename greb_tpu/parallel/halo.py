@@ -1,13 +1,13 @@
 """Halo exchange over a latitude-sharded device mesh.
 
 The stencils reach ±2 rows in latitude (advection meridional upwind,
-src/greb.f90:771-779) and ±3 columns in longitude.  The TPU-native domain
+src/greb.f90:771-779) and ±3 columns in longitude.  The domain
 decomposition shards LATITUDE only: all zonal stencils — including the
 sequential polar sub-cycles — are then shard-local, and one width-2
 ``lax.ppermute`` halo exchange per circulation substep covers every
 meridional dependency.  (Sharding longitude would force a halo exchange
 inside each polar sub-iteration; lat-sharding is the layout that keeps the
-ICI traffic at one neighbour shift per substep.)
+inter-device traffic at one neighbour shift per substep.)
 
 ``ppermute`` leaves non-received halos as zeros, which is exactly the
 reference's one-sided pole boundary treatment (dropped neighbour terms).
@@ -37,6 +37,23 @@ def halo_exchange_lat(x: jax.Array, width: int, axis_name: str,
     top_halo = lax.ppermute(x[..., -width:, :], axis_name, up_perm)
     bot_halo = lax.ppermute(x[..., :width, :], axis_name, down_perm)
     return jnp.concatenate([top_halo, x, bot_halo], axis=-2)
+
+
+def halo_exchange_lat_cyclic(x: jax.Array, width: int, axis_name: str,
+                             axis_size: int) -> jax.Array:
+    """``halo_exchange_lat`` written as a full cyclic permutation whose
+    wrapped-around halos are zeroed: the form ``vmap`` can batch (it becomes
+    indexing along the mapped axis), so the sharded program can run on one
+    device as a reference for the exchange."""
+    n = axis_size
+    i = lax.axis_index(axis_name)
+    top = lax.ppermute(x[..., -width:, :], axis_name,
+                       [(j, (j + 1) % n) for j in range(n)])
+    bot = lax.ppermute(x[..., :width, :], axis_name,
+                       [((j + 1) % n, j) for j in range(n)])
+    top = jnp.where(i > 0, top, jnp.zeros_like(top))
+    bot = jnp.where(i < n - 1, bot, jnp.zeros_like(bot))
+    return jnp.concatenate([top, x, bot], axis=-2)
 
 
 def make_sharded_extend(axis_name: str, axis_size: int):

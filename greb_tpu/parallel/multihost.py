@@ -1,9 +1,9 @@
 """Multi-host execution support.
 
-The reference is a single sequential process (SURVEY §2.4); the TPU-native
+The reference is a single sequential process (SURVEY §2.4); here the
 scaling path is `jax.distributed` + a global ('ens','y') mesh spanning all
-hosts, with latitude-band domain decomposition (halo exchange over ICI, see
-parallel.halo) and per-host sharded I/O.
+hosts, with latitude-band domain decomposition (halo exchange between
+devices, see parallel.halo) and per-host sharded I/O.
 
 Pieces:
 - ``initialize``        : jax.distributed bring-up (no-op on single host).

@@ -1,13 +1,12 @@
 """Multi-chip execution: dp (ensemble) x sp (latitude) sharding.
 
-The reference is strictly single-process (SURVEY §2.4).  The TPU-native
-scaling story:
+The reference is strictly single-process (SURVEY §2.4).  Here:
 
-* **dp / 'ens'** — ensemble members across chips (pure data parallel, no
+* **dp / 'ens'** — ensemble members across devices (pure data parallel, no
   collectives in the step).
 * **sp / 'y'**  — latitude-domain decomposition via ``shard_map``; the only
   communication is a width-2 ``ppermute`` halo exchange per circulation
-  substep (see parallel.halo), riding the ICI ring.  Longitude is kept
+  substep (see parallel.halo) between neighbouring shards.  Longitude is kept
   shard-local on purpose: the polar CFL sub-cycles iterate along longitude
   rows and would otherwise need a halo exchange per *inner* iteration.
 
@@ -30,7 +29,7 @@ from ..config import Experiment, Numerics
 from ..forcing import Corrections, ModelState
 from ..model import core
 from ..ops import stencils as stc
-from .halo import make_sharded_extend
+from .halo import halo_exchange_lat_cyclic, make_sharded_extend
 
 
 def make_mesh(n_ens: int = 1, n_y: int = 1,
@@ -112,25 +111,12 @@ def shard_fastcirc(mesh: Mesh, sconst):
         sconst, specs)
 
 
-def make_sharded_year_runners(mesh: Mesh, st: stc.StencilStatic,
-                              num: Numerics, exp: Experiment,
-                              month_mat: jax.Array,
-                              batched: bool = False,
-                              unroll_circ: bool = False,
-                              fast_plan=None):
-    """jitted (fluxcorr_year, scenario_year) over a ('ens','y') mesh.
-
-    batched=True expects a leading ensemble axis on state/corr/md(params,
-    derived); forcing and stencil constants are shared.
-
-    ``fast_plan`` (a fastcirc2.ShardPlan from fastcirc2.build_sharded)
-    enables the coefficient-folded circulation under latitude sharding; the
-    runners then take a trailing Fast2ShardConst argument (sharded with
-    shard_fastcirc).  Without it the strict masked stencils run.
-    """
+def _year_fns(st: stc.StencilStatic, num: Numerics, exp: Experiment,
+              month_mat: jax.Array, batched: bool, unroll_circ: bool,
+              fast_plan, extend):
+    """Per-shard (fluxcorr_year, scenario_year) with ``extend`` as the halo
+    exchange, and their (in_specs, out_specs) over the ('ens','y') mesh."""
     import dataclasses
-    n_y = mesh.shape["y"]
-    extend = make_sharded_extend("y", n_y)
     # polar band compaction indexes GLOBAL rows; under latitude sharding the
     # masked full-field form is the SPMD-uniform one
     st = dataclasses.replace(st, compact_polar=False)
@@ -172,11 +158,85 @@ def make_sharded_year_runners(mesh: Mesh, st: stc.StencilStatic,
     flux_in = (s_state, s_sfx, P(), s_md) + ((s_fc,) if with_fc else ())
     scnr_in = (s_state, s_sfx, s_corr, P(), s_md) + ((s_fc,) if with_fc
                                                      else ())
-    flux_sh = _shard_map(flux_local, mesh, in_specs=flux_in,
-                         out_specs=(s_state, s_corr))
-    scnr_sh = _shard_map(scnr_local, mesh, in_specs=scnr_in,
-                         out_specs=(s_state, s_monthly, s_meanf))
-    return jax.jit(flux_sh), jax.jit(scnr_sh)
+    return ((flux_local, flux_in, (s_state, s_corr)),
+            (scnr_local, scnr_in, (s_state, s_monthly, s_meanf)))
+
+
+def make_sharded_year_runners(mesh: Mesh, st: stc.StencilStatic,
+                              num: Numerics, exp: Experiment,
+                              month_mat: jax.Array,
+                              batched: bool = False,
+                              unroll_circ: bool = False,
+                              fast_plan=None):
+    """jitted (fluxcorr_year, scenario_year) over a ('ens','y') mesh.
+
+    batched=True expects a leading ensemble axis on state/corr/md(params,
+    derived); forcing and stencil constants are shared.
+
+    ``fast_plan`` (a fastcirc2.ShardPlan from fastcirc2.build_sharded)
+    enables the coefficient-folded circulation under latitude sharding; the
+    runners then take a trailing Fast2ShardConst argument (sharded with
+    shard_fastcirc).  Without it the strict masked stencils run.
+    """
+    extend = make_sharded_extend("y", mesh.shape["y"])
+    return tuple(
+        jax.jit(_shard_map(fn, mesh, in_specs=ins, out_specs=outs))
+        for fn, ins, outs in _year_fns(st, num, exp, month_mat, batched,
+                                       unroll_circ, fast_plan, extend))
+
+
+def make_emulated_year_runners(n_y: int, st: stc.StencilStatic,
+                               num: Numerics, exp: Experiment,
+                               month_mat: jax.Array,
+                               batched: bool = False,
+                               unroll_circ: bool = False,
+                               fast_plan=None):
+    """The runners of ``make_sharded_year_runners`` for an ``n_y``-way
+    latitude split, run on ONE device: the same per-shard program, mapped
+    with ``vmap`` over the n_y latitude blocks, and the halo exchange done
+    by indexing along the mapped axis (``halo_exchange_lat_cyclic``).  It
+    takes and returns unsharded global arrays.  A reference for the
+    cross-device exchange: against the mesh runners only the exchange
+    differs."""
+    extend = functools.partial(halo_exchange_lat_cyclic, axis_name="y",
+                               axis_size=n_y)
+    return tuple(
+        jax.jit(_map_blocks(fn, n_y, ins, outs))
+        for fn, ins, outs in _year_fns(st, num, exp, month_mat, batched,
+                                       unroll_circ, fast_plan, extend))
+
+
+def _map_blocks(fn, n: int, in_specs, out_specs):
+    """``fn`` mapped over n latitude blocks of its global inputs on one
+    device, as shard_map over an n-way 'y' axis would split them; axes
+    without 'y' in their PartitionSpec are passed whole."""
+    def y_axis(sp):
+        return tuple(sp).index("y") if "y" in tuple(sp) else None
+
+    def split(x, sp):
+        i = y_axis(sp)
+        if x is None or i is None:
+            return x
+        x = x.reshape(x.shape[:i] + (n, x.shape[i] // n) + x.shape[i + 1:])
+        return jnp.moveaxis(x, i, 0)
+
+    def merge(x, sp):
+        i = y_axis(sp)
+        if i is None:
+            return x[0]
+        x = jnp.moveaxis(x, 0, i)
+        return x.reshape(x.shape[:i] + (-1,) + x.shape[i + 2:])
+
+    is_spec = lambda x: isinstance(x, P)  # noqa: E731
+    in_axes = jax.tree.map(lambda sp: None if y_axis(sp) is None else 0,
+                           in_specs, is_leaf=is_spec)
+    mapped = jax.vmap(fn, in_axes=in_axes, axis_name="y")
+
+    def run(*args):
+        args = jax.tree.map(split, args, in_specs,
+                            is_leaf=lambda x: x is None)
+        return jax.tree.map(merge, mapped(*args), out_specs)
+    return run
 
 
 def shard_inputs(mesh: Mesh, batched: bool, state, sfx, corr, md):

@@ -69,6 +69,27 @@ def setup(forcing_np):
 
 
 @pytest.fixture(autouse=True)
+def _gpu_marker(request):
+    """Tests marked ``gpu`` run only where JAX's first device is a GPU;
+    decided here, at run time, so every worker collects the same tests."""
+    if request.node.get_closest_marker("gpu") is not None:
+        dev = jax.devices()[0]
+        if dev.platform != "gpu":
+            pytest.skip(f"needs an NVIDIA GPU; JAX has {dev.platform} "
+                        f"(run: JAX_PLATFORMS=cuda python -m pytest -m gpu)")
+
+
+@pytest.fixture
+def need_devices():
+    """need_devices(n) skips the test when JAX has fewer than n devices
+    (the root conftest gives the CPU 8 virtual ones)."""
+    def need(n: int) -> None:
+        if len(jax.devices()) < n:
+            pytest.skip(f"needs {n} devices, JAX has {len(jax.devices())}")
+    return need
+
+
+@pytest.fixture(autouse=True)
 def _restore_oracle_state(request):
     """The oracle mimics Fortran module state (cap_surf mutated by seaice);
     isolate tests from each other."""

@@ -3,7 +3,7 @@
 This is a test-only reimplementation that follows the Fortran reference
 (src/greb.f90) line-by-line — same float32 arithmetic order, same boundary
 forms, same integer sub-cycling semantics, same index quirk at
-src/greb.f90:881 — used as the golden regression target for the TPU-native
+src/greb.f90:881 — used as the golden regression target for the accelerator-native
 implementation (the reference Fortran itself cannot be compiled in this
 environment; no gfortran).
 

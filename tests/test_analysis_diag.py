@@ -135,8 +135,58 @@ def test_cli_help_and_missing_namelist():
     r = subprocess.run([sys.executable, "-m", "greb_tpu", "--help"],
                        capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0
-    assert "TPU-native GREB" in r.stdout
+    assert "GREB climate model in JAX" in r.stdout
     r = subprocess.run([sys.executable, "-m", "greb_tpu", "/no/such.nml"],
                        capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 2
     assert "namelist not found" in r.stderr
+
+
+def test_summarize_device_lines():
+    """Trace reduction behind tools/trace_xla.py: kernels and copies count
+    on stream lines only, a copy's kind comes from the trace's copy event
+    names (a kernel named like a copy stays a kernel), and busy time is the
+    union of overlapping intervals."""
+    from greb_tpu.diag.profiling import summarize_device_lines
+    lines = {
+        "Stream #13(Memset,Compute)": [
+            ("fusion_1", 0, 10), ("fusion_2", 5, 20),
+            ("memcpy32_post", 20, 22), ("Memset 0", 22, 23),
+            ("MemcpyDtoH", 30, 35)],
+        "Stream #14(MemcpyH2D)": [("MemcpyH2D", 40, 50)],
+        "XLA Ops": [("fusion_1", 0, 10)],
+    }
+    s = summarize_device_lines(lines)
+    assert s["lines"] == {"Stream #13(Memset,Compute)": 5,
+                          "Stream #14(MemcpyH2D)": 1, "XLA Ops": 1}
+    assert s["kernels"] == 3
+    assert s["copies"] == {"memset": 1, "d2h": 1, "h2d": 1}
+    assert s["copy_names"] == {
+        "memcpy32_post": {"kind": "kernel", "count": 1},
+        "Memset 0": {"kind": "memset", "count": 1},
+        "MemcpyDtoH": {"kind": "d2h", "count": 1},
+        "MemcpyH2D": {"kind": "h2d", "count": 1}}
+    assert s["busy_ns"] == 23 + 5 + 10
+    assert s["window_ns"] == 50
+    assert summarize_device_lines({})["busy_ns"] == 0
+
+
+def test_summarize_host_lines():
+    """Host calls behind tools/trace_xla.py's host-wait verdict: graph
+    launches, while-loop thunks, synchronisations and device-to-host
+    copies, each with the event names that matched."""
+    from greb_tpu.diag.profiling import summarize_host_lines
+    lines = {
+        "/host:CPU/python": [
+            ("cuGraphLaunch (CudaGraph:17)", 0, 1),
+            ("cuGraphLaunch (CudaGraph:17)", 2, 3), ("while.5", 0, 4),
+            ("command_buffer", 0, 1), ("cuStreamSynchronize", 5, 6)],
+        "/host:CPU/pjrt_async_work_runner/1": [("MemcpyH2D", 0, 1),
+                                               ("MemcpyD2H", 1, 2)],
+    }
+    s = summarize_host_lines(lines)
+    assert (s["graph_launch"], s["while_thunk"], s["sync"], s["d2h"],
+            s["kernel_launch"]) == (2, 1, 1, 1, 0)
+    assert s["names"] == {"cuGraphLaunch (CudaGraph:17)": 2, "while.5": 1,
+                          "cuStreamSynchronize": 1, "MemcpyD2H": 1}
+

@@ -50,7 +50,7 @@ def test_memory_accounting_768x384():
     assert 1.5 * 2 ** 30 < rep.detail["sharded dense composites (pcomp)"] \
         < 2.0 * 2 ** 30
     assert 9.5 * 2 ** 30 < rep.total < 11.0 * 2 ** 30
-    # sharded 8 ways each shard holds ~1.3 GiB — fits any TPU HBM
+    # sharded 8 ways each shard holds ~1.3 GiB — fits a 16 GiB device
     assert rep.per_shard_total < 1.5 * 2 ** 30
     assert rep.fits(hbm_bytes=16 * 2 ** 30)
     # unsharded it does NOT fit an 8 GiB budget with headroom
@@ -66,7 +66,7 @@ def test_memory_accounting_reference_grid():
     rep = memory_report(Numerics())
     assert 85 * 2 ** 20 < rep.forcing < 100 * 2 ** 20
     assert rep.wind_splits == 0
-    assert rep.fits()
+    assert rep.fits(hbm_bytes=2 ** 30)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ def forcing96():
     return forcing_from_arrays(make_synthetic_forcing(96, 48, 730))
 
 
-def _run_model(forcing, **cfg_kw):
+def run_golden_year(forcing, **cfg_kw):
     num = Numerics(time_flux=1, time_scnr=1)
     m = GREB(GrebConfig(numerics=num, **cfg_kw), forcing=forcing,
              verbose=False)
@@ -51,40 +51,46 @@ def _run_model(forcing, **cfg_kw):
     return m, state_fc, corr, state, monthly[0]
 
 
+def golden_checks(golden, state_fc, corr, state, monthly):
+    """[(name, max |got - golden|, absolute bound)] for every compared
+    quantity; cap_surf's bound is relative (max |got/golden - 1|)."""
+    checks = []
+
+    def add(name, got, want, bound):
+        d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+        checks.append((name, float(d.max()), bound))
+
+    # flux-correction year pins the end state to the oracle's
+    for k, g in (("ts", "fc_ts"), ("ta", "fc_ta"), ("to", "fc_to")):
+        add(g, getattr(state_fc, k), golden[g], 2e-2)
+    add("fc_q", state_fc.q, golden["fc_q"], 3e-6)
+    rel = np.abs(np.asarray(state_fc.cap_surf, np.float64)
+                 / golden["fc_cap_surf"] - 1.0)
+    checks.append(("fc_cap_surf(rel)", float(rel.max()), 1e-5))
+    # correction-table annual means (ftmn/fqmn analog)
+    add("corr_tf_mean", np.asarray(corr.tf).mean(axis=0),
+        golden["corr_tf_mean"], 1.0)
+    add("corr_qf_mean", np.asarray(corr.qf).mean(axis=0),
+        golden["corr_qf_mean"], 1e-7)
+    # scenario-year monthly means, all 12 months, ALL rows incl. poles
+    got = np.asarray(monthly)                      # (12, 5, 48, 96)
+    for v, name in enumerate(("ts", "ta", "to", "q", "albedo")):
+        add("monthly_" + name, got[:, v], golden["monthly"][:, v], TOL[name])
+    # end-of-scenario state
+    for k, g in (("ts", "end_ts"), ("ta", "end_ta"), ("to", "end_to")):
+        add(g, getattr(state, k), golden[g], 3e-2)
+    add("end_q", state.q, golden["end_q"], 5e-6)
+    return checks
+
+
 @pytest.mark.parametrize("cfg", [dict(fast_circulation=False),
                                  dict(fast_circulation=True)],
                          ids=["strict", "fast-v2"])
 def test_golden_year_monthly_means(golden, forcing96, cfg):
-    m, state_fc, corr, state, monthly = _run_model(forcing96, **cfg)
-
-    # flux-correction year pins the end state to the oracle's
-    for k, g in (("ts", "fc_ts"), ("ta", "fc_ta"), ("to", "fc_to")):
-        np.testing.assert_allclose(np.asarray(getattr(state_fc, k)),
-                                   golden[g], rtol=0, atol=2e-2, err_msg=g)
-    np.testing.assert_allclose(np.asarray(state_fc.q), golden["fc_q"],
-                               rtol=0, atol=3e-6, err_msg="fc_q")
-    np.testing.assert_allclose(np.asarray(state_fc.cap_surf),
-                               golden["fc_cap_surf"], rtol=1e-5, atol=0)
-
-    # correction-table annual means (ftmn/fqmn analog)
-    np.testing.assert_allclose(np.asarray(corr.tf.mean(axis=0)),
-                               golden["corr_tf_mean"], rtol=0, atol=1.0)
-    np.testing.assert_allclose(np.asarray(corr.qf.mean(axis=0)),
-                               golden["corr_qf_mean"], rtol=0, atol=1e-7)
-
-    # scenario-year monthly means, all 12 months, ALL rows incl. poles
-    got = np.asarray(monthly)                      # (12, 5, 48, 96)
-    want = golden["monthly"]
-    for v, name in enumerate(("ts", "ta", "to", "q", "albedo")):
-        np.testing.assert_allclose(got[:, v], want[:, v], rtol=0,
-                                   atol=TOL[name], err_msg=name)
-
-    # end-of-scenario state
-    for k, g in (("ts", "end_ts"), ("ta", "end_ta"), ("to", "end_to")):
-        np.testing.assert_allclose(np.asarray(getattr(state, k)), golden[g],
-                                   rtol=0, atol=3e-2, err_msg=g)
-    np.testing.assert_allclose(np.asarray(state.q), golden["end_q"],
-                               rtol=0, atol=5e-6, err_msg="end_q")
+    m, state_fc, corr, state, monthly = run_golden_year(forcing96, **cfg)
+    for name, d, bound in golden_checks(golden, state_fc, corr, state,
+                                        monthly):
+        assert d <= bound, (name, d, bound)
 
 
 @pytest.mark.skipif(not os.environ.get("GREB_SLOW"),

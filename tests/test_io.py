@@ -11,6 +11,7 @@ from greb_tpu.io.namelist import parse_namelist, read_namelist, write_namelist
 from greb_tpu.io.synthetic import INPUT_FILES, make_synthetic_forcing, write_forcing_dir
 
 F32 = np.float32
+DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def test_record_roundtrip(tmp_path):
@@ -75,13 +76,13 @@ def test_load_reference_static_inputs():
 
 
 def test_namelist_parse_reference_files():
-    groups = read_namelist("/root/reference/namelist")
+    groups = read_namelist(os.path.join(DATA, "namelist"))
     assert groups["numerics_par"]["time_flux"] == 3
     assert groups["numerics_par"]["time_scnr"] == 50
     assert groups["numerics_par"]["ipx"] == 95
     assert groups["diagnostics_par"]["output_file"] == "output/scenario"
     assert groups["co2_par"]["co2_ppm"] == 680
-    legacy = read_namelist("/root/reference/namelist_original")
+    legacy = read_namelist(os.path.join(DATA, "namelist_original"))
     assert legacy["physics"]["log_exp"] == 10
     assert legacy["numerics"]["time_ctrl"] == 3
 
@@ -121,7 +122,7 @@ def test_namelist_roundtrip(tmp_path):
 
 
 def test_config_from_reference_namelist():
-    cfg, params = config_from_namelist("/root/reference/namelist")
+    cfg, params = config_from_namelist(os.path.join(DATA, "namelist"))
     assert cfg.numerics.time_flux == 3
     assert cfg.numerics.time_scnr == 50
     assert cfg.numerics.ipx == 95 and cfg.numerics.ipy == 38

@@ -5,7 +5,7 @@ ppermutes cross the process boundary — and each process checks its own
 addressable shards against an unsharded reference (tests/mp_worker.py).
 
 The reference is strictly single-process (SURVEY §2.4); this is the
-multi-host story's process-boundary proof without TPU pod hardware.
+multi-host story's process-boundary proof without multi-device hardware.
 """
 import os
 import socket

@@ -1,13 +1,13 @@
-"""MXU ensemble-path parity (VERDICT r2 weak #5).
+"""Matmul ensemble-path parity (VERDICT r2 weak #5).
 
-The production config-3 path runs the zonal applies as row-batched MXU
-matmuls (ops/fastcirc2.build_mxu / mxu_circulation) — the matrices are
-exact densifications of the 7-band coefficients, so with precision
-"highest" (exact f32) results differ from the VPU fold only by matmul
-contraction order, and with the production default "high" (bf16_3x) by a
-documented ~2^-21 relative error per apply.  This pins both against the
-vmap/VPU runner (itself oracle-anchored by tests/test_step.py and the
-golden year) over a FULL 730-step year of flux correction + scenario.
+The config-3 ensemble path runs the zonal applies as row-batched matmuls
+(ops/fastcirc2.build_mxu / mxu_circulation) — the matrices are exact
+densifications of the 7-band coefficients, so with precision "highest"
+(full float32, the default) results differ from the elementwise fold only
+by matmul contraction order.  "high" lets the backend use reduced-precision
+passes (TF32 on an H100).  This pins both against the vmapped elementwise
+runner (itself oracle-anchored by tests/test_step.py and the golden year)
+over a FULL 730-step year of flux correction + scenario.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +22,8 @@ CO2 = jnp.float32(680.0)
 M = 2
 
 
-@pytest.fixture(scope="module")
-def mxu_setup():
+def make_mxu_setup():
+    """M members, full years: the reference runs of the tests below."""
     num = Numerics(time_flux=1, time_scnr=1)       # full 730-step years
     m = GREB(GrebConfig(numerics=num, fast_circulation=True), verbose=False)
     plan, (const,) = m._fastcirc_split()
@@ -40,6 +40,11 @@ def mxu_setup():
     sv2, mon_v, _ = scnr_v(sv, m.sfx, corr_v, CO2, md_v, (const,))
     md_b = ens.batched_model_data(pb, m.forcing, m.sf)
     return m, plan, const, pb, state_b, md_b, corr_v, sv2, mon_v
+
+
+@pytest.fixture(scope="module")
+def mxu_setup():
+    return make_mxu_setup()
 
 
 def _run_mxu(mxu_setup, precision):
@@ -59,8 +64,8 @@ def _run_mxu(mxu_setup, precision):
 
 
 def test_mxu_highest_matches_vpu_fold(mxu_setup):
-    """Exact-f32 MXU vs VPU fold: differences are matmul contraction order
-    only — sub-millikelvin after a full year."""
+    """Full-f32 matmuls vs the elementwise fold: differences are matmul
+    contraction order only — sub-millikelvin after a full year."""
     d_tf, d_mon, d_ts, _ = _run_mxu(mxu_setup, "highest")
     assert d_ts < 5e-3, d_ts                     # K, end-of-year state
     assert d_mon < 5e-3, d_mon                   # monthly means (mixed units)
@@ -69,21 +74,49 @@ def test_mxu_highest_matches_vpu_fold(mxu_setup):
 
 
 def test_mxu_high_error_budget(mxu_setup):
-    """Production precision ("high"): the documented error budget vs the
-    VPU fold over a full year.  The BULK bound (monthly RMS) is tight on
-    every platform; the max-abs bound is platform-aware: on real TPUs HIGH
-    runs 3-pass HARDWARE bf16 whose rounding differs from the CPU
-    emulation, and a ~2^-21 per-apply perturbation routed through the
-    ice-albedo/sea-ice thresholds can flip a knife-edge cell for a month
-    (measured 0.17 K max, RMS 3 orders smaller, on v5e — round 5, first
-    time this lane ran on real hardware)."""
-    import jax
+    """Precision "high" vs the elementwise fold over a full year, with the
+    bounds of the backend this suite runs on (the CPU computes "high" in
+    float32); the GPU's TF32 bounds are test_mxu_high_error_budget_gpu."""
     d_tf, d_mon, d_ts, rms_mon = _run_mxu(mxu_setup, "high")
     assert d_ts < 5e-2, d_ts
-    assert rms_mon < 5e-3, rms_mon               # bulk agreement, all platforms
-    on_tpu = jax.devices()[0].platform != "cpu"
-    assert d_mon < (0.5 if on_tpu else 5e-2), d_mon
+    assert rms_mon < 5e-3, rms_mon
+    assert d_mon < 5e-2, d_mon
     assert d_tf < 50.0, d_tf
+
+
+# Precision "high" on an H100 (TF32) vs the elementwise fold after one
+# flux-correction + one scenario year at 96x48.  About 3x the error measured
+# on the card with 8 members in stacked mode (monthly max 1.25, RMS 0.086;
+# end-state ts max 0.45; TF table max 29 W/m^2 — PERF.md).  This test's own
+# set-up (M members, pair mode) measured far less there (monthly max 5.2e-4):
+# what TF32 costs depends on the shapes and mode XLA gets, so the bounds
+# hold the worse case.
+GPU_HIGH_BOUNDS = {"d_mon": 4.0, "rms_mon": 0.25, "d_ts": 1.5, "d_tf": 90.0}
+
+
+def check_high_error_gpu(setup) -> dict:
+    """The body of test_mxu_high_error_budget_gpu; returns the errors."""
+    d_tf, d_mon, d_ts, rms_mon = _run_mxu(setup, "high")
+    errs = {"d_mon": float(d_mon), "rms_mon": rms_mon, "d_ts": float(d_ts),
+            "d_tf": float(d_tf)}
+    for k, bound in GPU_HIGH_BOUNDS.items():
+        assert errs[k] < bound, (k, errs[k], bound)
+    return errs
+
+
+@pytest.mark.gpu
+def test_mxu_high_error_budget_gpu(mxu_setup):
+    check_high_error_gpu(mxu_setup)
+
+
+def test_build_mxu_defaults_to_highest():
+    """The ensemble matmuls keep the single-run float32 contract unless a
+    caller asks for "high"."""
+    import inspect
+    assert inspect.signature(fc2.build_mxu).parameters[
+        "precision"].default == "highest"
+    assert fc2.MxuConst.__dataclass_fields__["precision"].default \
+        == "highest"
 
 
 def test_mxu_densification_is_exact():
@@ -172,36 +205,3 @@ def test_mxu_stacked_bit_identical():
     d_p = fc2.mxu_circulation(x, cf, const, mxu_p, plan, nsub=24)
     d_s = fc2.mxu_circulation(x, cf, const, mxu_s, plan, nsub=24)
     np.testing.assert_array_equal(np.asarray(d_p), np.asarray(d_s))
-
-
-def test_mxu_members_circulation_parity():
-    """The in-kernel member-batched formulation (fastcirc2.MxuMembers;
-    round-5 member kernel) matches mxu_circulation on the same (MB,2,Y,X)
-    batch: "highest" to f32 contraction-order noise, "bf16_3x" within the
-    documented HIGH error budget."""
-    import jax
-
-    num = Numerics(time_flux=0, time_scnr=0)
-    m = GREB(GrebConfig(numerics=num, fast_circulation=True), verbose=False)
-    plan, (const,) = m._fastcirc_split()
-    rng = np.random.default_rng(7)
-    MB, Y, X = 4, num.ydim, num.xdim
-    x2 = jnp.asarray(280.0 + 10 * rng.standard_normal((MB, 2, Y, X)),
-                     jnp.float32)
-    u = jnp.asarray(m.forcing.uclim[0], jnp.float32)
-    v = jnp.asarray(m.forcing.vclim[0], jnp.float32)
-    cf = fc2.step_coeffs(u, v, const, plan)
-    nsub = num.nsub_crcl
-
-    mxu_ref = fc2.build_mxu(const, plan, precision="highest", mode="stacked")
-    want = np.asarray(fc2.mxu_circulation(x2, cf, const, mxu_ref, plan,
-                                          nsub, unroll=True))
-    # bf16_3x tolerance is for RANDOM (maximally rough) fields over 24
-    # substeps; real climate fields are far smoother (cf. the full-year
-    # "high" budget of 5e-2 in test_mxu_high_error_budget)
-    for prec, tol in (("highest", 2e-4), ("bf16_3x", 5e-2)):
-        mm = fc2.build_mxu_members(const, plan, precision=prec)
-        got = np.asarray(fc2.mxu_members_circulation(
-            x2, cf, const, mm, plan, nsub, unroll=True))
-        d = np.abs(got - want).max()
-        assert d < tol, (prec, d)

@@ -17,7 +17,8 @@ from greb_tpu.forcing import Corrections, forcing_from_arrays
 from greb_tpu.io.synthetic import make_synthetic_forcing
 from greb_tpu.model.driver import GREB
 from greb_tpu.ops import fastcirc2 as fc2
-from greb_tpu.parallel.sharded import (make_mesh, make_sharded_year_runners,
+from greb_tpu.parallel.sharded import (make_emulated_year_runners, make_mesh,
+                                       make_sharded_year_runners,
                                        shard_fastcirc, shard_inputs)
 
 CO2 = jnp.float32(680.0)
@@ -74,6 +75,28 @@ def test_sharded_fast_96x48():
                                rtol=0, atol=2e-2)
     np.testing.assert_allclose(np.asarray(s_sh2.ts), np.asarray(s_ref2.ts),
                                rtol=0, atol=2e-2)
+
+
+def test_sharded_emulated_on_one_device_bitexact():
+    """make_emulated_year_runners runs the 4-shard program on one device
+    with the halo exchange done by indexing: on the CPU it reproduces the
+    4-device mesh bit for bit, flux correction and scenario year."""
+    num = Numerics(ndays_yr=10, jday_mon=(6, 4), time_flux=1, time_scnr=1)
+    m = _model(num)
+    splan, ref, sh = _run_pair(num, n_y=4)
+    _, sconst = fc2.build_sharded(
+        np.asarray(m.derived.wz_air), np.asarray(m.derived.wz_vapor),
+        m.grid, m.st, kappa=float(m.params.kappa), n_shards=4)
+    flux_e, scnr_e = make_emulated_year_runners(4, m.st, num, m.exp,
+                                                m.month_mat, fast_plan=splan)
+    s_e, corr_e = flux_e(m.initial_state(), m.sfx, CO2, m.md, sconst)
+    s_e2, mon_e, _ = scnr_e(s_e, m.sfx, corr_e, CO2, m.md, sconst)
+    assert s_e2.ts.devices() == {jax.devices()[0]}
+    (s_sh, corr_sh, s_sh2, mon_sh) = sh
+    np.testing.assert_array_equal(np.asarray(corr_e.tf),
+                                  np.asarray(corr_sh.tf))
+    np.testing.assert_array_equal(np.asarray(mon_e), np.asarray(mon_sh))
+    np.testing.assert_array_equal(np.asarray(s_e2.ts), np.asarray(s_sh2.ts))
 
 
 def test_sharded_fast_lowrank_96x48():
@@ -160,3 +183,23 @@ def test_sharded_fast_dp_sp_members():
                                rtol=0, atol=2e-2)
     np.testing.assert_allclose(np.asarray(s_sh2.ts), np.asarray(s_v2.ts),
                                rtol=0, atol=2e-2)
+
+
+def test_sharded_composites_conserve_zonal_mean():
+    """The composite powers (I+C)^n of the deep polar rows (n = 1651 at the
+    384x192 pole rows) map a zonally constant row onto itself: each
+    operator's column sums are 1.  Built from float32-rounded coefficients
+    they drifted by ~n * 1e-8, which moved the pole rows' Ta by 0.08 K per
+    12-h step away from the strict stencils."""
+    num = Numerics(xdim=384, ydim=192, ndays_yr=2, jday_mon=(2,),
+                   time_flux=0, time_scnr=1)
+    m = _model(num)
+    assert int(np.asarray(m.grid.diff_sched.time2).max()) > 1000
+    splan, sconst = fc2.build_sharded(
+        np.asarray(m.derived.wz_air), np.asarray(m.derived.wz_vapor),
+        m.grid, m.st, kappa=float(m.params.kappa), n_shards=4)
+    assert splan.comp_mode == "dense"
+    used = np.asarray(sconst.pid)[:, 0] == 0
+    pc = np.asarray(sconst.pcomp, np.float64)[:, used]     # (F, k, X, X)
+    np.testing.assert_allclose(pc.sum(axis=-2), 1.0, rtol=0, atol=1e-6)
+

@@ -16,8 +16,7 @@ sea-ice zone cap_surf switches ~40x across the ice-ramp thresholds
 (src/greb.f90:483-487): a refined grid resolves the ice edge differently
 by construction, and the reduced CI calendar (10-day years) amplifies the
 edge flip-flop, so those cells carry a looser bound.  The full-calendar
-on-chip check (tools/probe.py xgrid) asserts the tighter tolerances
-recorded in RUNS.md.
+run on the device is tools/probes/xgrid.py.
 """
 import numpy as np
 import pytest

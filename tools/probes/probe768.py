@@ -1,4 +1,9 @@
 """Localize the 768x384 instability: run substep components separately."""
+import os, sys
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+from greb_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 import numpy as np, jax, jax.numpy as jnp
 from greb_tpu.config import GrebConfig, Numerics
 from greb_tpu.forcing import forcing_from_arrays

@@ -1,5 +1,10 @@
 """Per-row spectral radius of the zonal diffusion substep operator at 768x384
 (power iteration, all rows at once)."""
+import os, sys
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+from greb_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 import numpy as np
 from greb_tpu.config import GrebConfig, Numerics
 from greb_tpu.forcing import forcing_from_arrays

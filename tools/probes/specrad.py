@@ -5,12 +5,13 @@ are inactive for small perturbations around a positive state) on an
 extension grid with a UNIFORM worst-case wind, to adjudicate the Fourier
 budget in grid.py against a first-principles measurement.
 
-  python tools/specrad.py [XxY] [dt_crcl] [wind]
+  python tools/probes/specrad.py [XxY] [dt_crcl] [wind]
 """
-import os
-import sys
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import os, sys
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+from greb_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp

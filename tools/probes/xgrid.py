@@ -1,4 +1,4 @@
-"""Cross-grid climate consistency ON CHIP, full 730-step calendar
+"""Cross-grid climate consistency on the device, full 730-step calendar
 (VERDICT r4 task 5's on-chip half; the CI half runs a reduced calendar on
 CPU, tests/test_xgrid_consistency.py).
 
@@ -6,16 +6,18 @@ Runs the SAME experiment at 96x48 and 384x192 (synthetic climatology,
 bilinearly regridded; 1 flux-correction year + N scenario years at 2xCO2),
 coarse-averages the refined run's final-year annual-mean Tsurf to 96x48
 (area weights) and reports global-mean / pattern-RMS agreement.  Prints
-one JSON line for RUNS.md.
+one JSON line.
 
 Env: GREB_XGRID_YEARS (default 3).
 """
 import json
-import os
-import sys
 import time
 
-sys.path.insert(0, ".")
+import os, sys
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+from greb_tpu.runtime import enable_compile_cache
+enable_compile_cache()
 
 import numpy as np
 
@@ -33,7 +35,7 @@ def run(xd, yd):
     num = Numerics(xdim=xd, ydim=yd, time_flux=1, time_scnr=YEARS)
     arrs = make_synthetic_forcing(96, 48, num.nstep_yr, num.ndays_yr)
     forcing = forcing_from_arrays(regrid_forcing_arrays(arrs, num))
-    m = GREB(GrebConfig(numerics=num, fast_circulation=True, use_pallas=True,
+    m = GREB(GrebConfig(numerics=num, fast_circulation=True,
                         diagnostics=Diagnostics(console=False)),
              forcing=forcing, verbose=False)
     t0 = time.perf_counter()
